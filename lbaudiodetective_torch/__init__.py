@@ -1,0 +1,39 @@
+"""LBAudioDetective on PyTorch and CUDA: the port of ``lbaudiodetective_tpu``.
+
+The extract -> match path runs on a torch device; on CUDA the extraction
+goes through hand-written Hopper kernels (``ops.kernels``).  Decoding,
+resampling, the configuration and the Fingerprint value type are the
+reference package's host-only modules, imported unchanged.  This package
+never imports JAX.
+
+    FingerprintConfig   -- frozen, hashable pipeline configuration
+    Fingerprint         -- value type holding subfingerprint bits
+    AudioDetective      -- decode -> extract -> match on one device
+    extract_fingerprint -- single-clip extraction
+    match_fingerprints  -- offset-sliding matcher
+
+Imports are lazy (PEP 562).
+"""
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "FingerprintConfig": "lbaudiodetective_tpu.config",
+    "Fingerprint": "lbaudiodetective_tpu.models.fingerprint",
+    "FingerprintBuilder": "lbaudiodetective_tpu.models.fingerprint",
+    "AudioDetective": "lbaudiodetective_torch.models.detective",
+    "FingerprintExtractor": "lbaudiodetective_torch.ops.extract",
+    "extract_fingerprint": "lbaudiodetective_torch.ops.extract",
+    "match_fingerprints": "lbaudiodetective_torch.ops.match",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        module = importlib.import_module(_EXPORTS[name])
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

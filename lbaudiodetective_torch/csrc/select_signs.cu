@@ -1,0 +1,45 @@
+// Standalone top-128 sign-class select: [N, 4096] f32 -> [N, 128] i32.
+//
+// Replaces the TPU kernel lbaudiodetective_tpu/ops/pallas/select_signs.py
+// :: select_sign_classes (_select_kernel / _select_body), and with it the
+// select tail kernel inside fused_band_rows_v3 (fused_rows_v2.py,
+// _tail_kernel).
+//
+// Bound on the H100: shared-memory traffic and barriers of the sort, not
+// device memory.  Each frame is read once (16 KB) and 512 B are written, but
+// the full bitonic network makes 78 passes over 32 KB of keys.
+//
+// Design: one CTA per frame, so nothing carries between blocks (the TPU
+// kernel's 32-frame blocks and lane-roll merge-prune tree were shaped by
+// its 128-lane vector unit).  The 4096 keys sit in shared memory, and
+// 512 threads each do 4 compare-exchanges per stage.  The sort is exact in
+// integers, so the result is element-exact against the stable sort.
+#include <cuda_runtime.h>
+
+#include "select_signs.cuh"
+
+namespace {
+
+constexpr int kSelectThreads = 512;
+
+__global__ void __launch_bounds__(kSelectThreads)
+select_sign_classes_kernel(const float* __restrict__ x, int* __restrict__ out) {
+  __shared__ unsigned long long keys[lbad::kFrame];
+  const float* frame = x + static_cast<size_t>(blockIdx.x) * lbad::kFrame;
+  for (int i = threadIdx.x; i < lbad::kFrame; i += blockDim.x) {
+    keys[i] = lbad::select_key(frame[i], i);
+  }
+  __syncthreads();
+  lbad::select_top128(keys, out + static_cast<size_t>(blockIdx.x) * lbad::kTop);
+}
+
+}  // namespace
+
+extern "C" int lbad_select_sign_classes(const float* x, int n_frames, int* out,
+                                        void* stream) {
+  if (n_frames > 0) {
+    select_sign_classes_kernel<<<n_frames, kSelectThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(x, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

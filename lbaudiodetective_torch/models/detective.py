@@ -1,0 +1,155 @@
+"""AudioDetective: the end-to-end pipeline object (port of
+``lbaudiodetective_tpu/models/detective.py``).
+
+Decode on the host -> extract on ``device`` -> match on ``device``.  The
+device is explicit: ``AudioDetective(config, device="cuda")`` runs the
+kernels and raises when CUDA is absent; it never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lbaudiodetective_tpu.config import FingerprintConfig
+from lbaudiodetective_tpu.io.decode import DecodedAudio, decode_audio_file
+from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+from lbaudiodetective_torch.ops.extract import (
+    bucket_subfingerprints, extract_fingerprint, extract_fingerprint_batch)
+from lbaudiodetective_torch.ops.match import match_fingerprints, match_one_vs_many_padded
+
+
+class AudioDetective:
+    """Decode -> extract -> match pipeline with reference-compatible knobs."""
+
+    def __init__(self, config: FingerprintConfig | None = None,
+                 device: torch.device | str = "cpu"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("AudioDetective(device='cuda'): CUDA is not available")
+        self.config = config or FingerprintConfig()
+        #: Recording-format preference (only the sample rate is tunable).
+        self.recording_sample_rate = 44100.0
+        #: The most recent fingerprint (after compare_audio_files: the second).
+        self.last_fingerprint: Fingerprint | None = None
+
+    def __enter__(self) -> "AudioDetective":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.dispose()
+
+    def dispose(self) -> None:
+        """No-op; kept for API parity with LBAudioDetectiveDispose."""
+
+    # -- preferences (LBAudioDetective.h:63-201) ----------------------------
+
+    @property
+    def processing_sample_rate(self) -> float:
+        return self.config.processing_sample_rate
+
+    @processing_sample_rate.setter
+    def processing_sample_rate(self, value: float) -> None:
+        self.config = self.config.with_updates(processing_sample_rate=float(value))
+
+    @property
+    def number_of_pitch_steps(self) -> int:
+        return self.config.pitch_step_count
+
+    @number_of_pitch_steps.setter
+    def number_of_pitch_steps(self, value: int) -> None:
+        self.config = self.config.with_updates(pitch_step_count=int(value))
+
+    @property
+    def subfingerprint_length(self) -> int:
+        return self.config.subfingerprint_length
+
+    @subfingerprint_length.setter
+    def subfingerprint_length(self, value: int) -> None:
+        self.config = self.config.with_updates(subfingerprint_length=int(value))
+
+    @property
+    def window_size(self) -> int:
+        return self.config.window_size
+
+    @window_size.setter
+    def window_size(self, value: int) -> None:
+        self.config = self.config.with_updates(window_size=int(value))
+
+    @property
+    def analysis_stride(self) -> int:
+        return self.config.analysis_stride
+
+    @analysis_stride.setter
+    def analysis_stride(self, value: int) -> None:
+        self.config = self.config.with_updates(analysis_stride=int(value))
+
+    # -- processing ---------------------------------------------------------
+
+    def process_audio_file(self, path: str) -> Fingerprint:
+        if path is None:
+            from lbaudiodetective_tpu.errors import InvalidArgumentError
+
+            raise InvalidArgumentError(
+                "path must not be None (kLBAudioDetectiveArgumentInvalid)")
+        audio = decode_audio_file(path, self.config.processing_sample_rate)
+        return self.process_decoded(audio)
+
+    def process_decoded(self, audio: DecodedAudio) -> Fingerprint:
+        pos, neg, n_sub = extract_fingerprint(audio, self.config, device=self.device)
+        fp = Fingerprint.from_planes(pos[:n_sub], neg[:n_sub],
+                                     self.config.subfingerprint_length)
+        self.last_fingerprint = fp
+        return fp
+
+    def process_batch(self, paths: list[str]) -> list[Fingerprint]:
+        """All clips in one padded device dispatch."""
+        clips = [decode_audio_file(p, self.config.processing_sample_rate) for p in paths]
+        return self.process_decoded_batch(clips)
+
+    def process_decoded_batch(self, clips: list[DecodedAudio]) -> list[Fingerprint]:
+        pos, neg, n_subs = extract_fingerprint_batch(clips, self.config,
+                                                     device=self.device)
+        return [Fingerprint.from_planes(pos[i, :n], neg[i, :n],
+                                        self.config.subfingerprint_length)
+                for i, n in enumerate(n_subs)]
+
+    def compare_audio_files(self, path1: str, path2: str,
+                            comparison_range: int = 0) -> float:
+        fp1 = self.process_audio_file(path1)
+        fp2 = self.process_audio_file(path2)
+        return self.compare_fingerprints(fp1, fp2, comparison_range)
+
+    def compare_fingerprints(self, fp1: Fingerprint, fp2: Fingerprint,
+                             comparison_range: int = 0) -> float:
+        return match_fingerprints((fp1.pos, fp1.neg), (fp2.pos, fp2.neg),
+                                  comparison_range, self.config.subfingerprint_length,
+                                  device=self.device)
+
+    def match_against_library(self, query: Fingerprint,
+                              library: list[Fingerprint],
+                              comparison_range: int = 0) -> np.ndarray:
+        """One-vs-many: returns ``[len(library)]`` match scores."""
+        if not library:
+            return np.zeros(0, dtype=np.float32)
+        s_max = bucket_subfingerprints(max(max(f.num_subfingerprints for f in library),
+                                           query.num_subfingerprints, 1))
+        pairs = query.pairs
+        lib_pos = np.zeros((len(library), s_max, pairs), np.uint8)
+        lib_neg = np.zeros((len(library), s_max, pairs), np.uint8)
+        for i, f in enumerate(library):
+            lib_pos[i, :f.num_subfingerprints] = f.pos
+            lib_neg[i, :f.num_subfingerprints] = f.neg
+        qp = np.zeros((s_max, pairs), np.uint8)
+        qn = np.zeros((s_max, pairs), np.uint8)
+        qp[:query.num_subfingerprints] = query.pos
+        qn[:query.num_subfingerprints] = query.neg
+        n_lib = np.array([f.num_subfingerprints for f in library], np.int64)
+        dev = self.device
+        scores = match_one_vs_many_padded(
+            torch.from_numpy(qp).to(dev), torch.from_numpy(qn).to(dev),
+            torch.tensor(query.num_subfingerprints, device=dev),
+            torch.from_numpy(lib_pos).to(dev), torch.from_numpy(lib_neg).to(dev),
+            torch.from_numpy(n_lib).to(dev),
+            comparison_range, self.config.subfingerprint_length)
+        return scores.cpu().numpy()

@@ -1,0 +1,18 @@
+"""Hand-written Hopper kernels of the extraction path, each beside its plain
+PyTorch version.  Nothing is compiled at import: the CUDA library is built
+by ``_build.load_library`` on the first launch."""
+
+from lbaudiodetective_torch.ops.kernels.fused_rows import fused_band_rows
+from lbaudiodetective_torch.ops.kernels.select_signs import select_sign_classes
+
+#: Every kernel wrapper; each carries a ``launches`` count.
+WRAPPERS = (select_sign_classes, fused_band_rows)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

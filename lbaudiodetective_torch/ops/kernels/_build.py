@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``lbaudiodetective_torch/csrc/`` are compiled by ``nvcc``
+for ``sm_90a`` (H100) into one shared library with a plain C interface,
+which is loaded with ``ctypes``.  The build runs on first use, never at
+import, into ``build/torch_kernels/`` beside the package; the file name
+carries a hash of the sources, so an edited source is rebuilt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"liblbad_kernels_{h.hexdigest()[:12]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless the library for these sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use, with every entry
+    point's argument and return types declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+            lib.lbad_select_sign_classes.argtypes = [p, i, p, p]
+            lib.lbad_select_sign_classes.restype = i
+            lib.lbad_fused_rows.argtypes = [p, i, ll, i, i, p, p, p, p, i, p, p, f,
+                                            p, p, p]
+            lib.lbad_fused_rows.restype = i
+            lib.lbad_fused_rows_smem_bytes.argtypes = [i]
+            lib.lbad_fused_rows_smem_bytes.restype = i
+            _lib = lib
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status}")

@@ -1,0 +1,77 @@
+"""Shared helpers of the PyTorch port's tests (``tests/test_torch_*.py``).
+
+Inputs are made from a seed with numpy and handed to both the JAX package
+and the port.  Tests of a CUDA kernel take the ``cuda_device`` fixture and
+carry the ``cuda`` marker: they skip where no card is present, deciding so
+inside the fixture, never at import."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def brown_noise(seed: int, batch: int, n: int) -> np.ndarray:
+    """Brown-spectrum noise with non-zero energy in every band."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, n)).astype(np.float32) * 0.1
+    return (np.cumsum(x, axis=1) * 0.05).astype(np.float32)
+
+
+def synth_clip(seed: int, seconds: float, config):
+    """A decoded ``seconds``-long clip, as decode_audio_file returns it."""
+    from lbaudiodetective_tpu.io.decode import DecodedAudio
+
+    n = int(seconds * config.processing_sample_rate)
+    return DecodedAudio(brown_noise(seed, 1, n)[0], config.processing_sample_rate,
+                        int(seconds * config.file_sample_rate),
+                        config.file_sample_rate)
+
+
+def bit_agreement(pos_a, neg_a, pos_b, neg_b) -> float:
+    return float(((pos_a == pos_b).mean() + (neg_a == neg_b).mean()) / 2)
+
+
+def select_cases() -> dict[str, np.ndarray]:
+    """The six frame sets of tests/test_select_signs.py."""
+    rng = np.random.default_rng(0)
+    cases = {"random": rng.standard_normal((64, 4096)).astype(np.float32)}
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((64, 4096)).astype(np.float32)
+    x[:, 1::2] = -x[:, ::2]
+    cases["plus_minus_tie_pairs"] = x
+    x = np.zeros((64, 4096), np.float32)
+    x[:, :50] = 1.5
+    x[:, 100:160] = -1.5
+    cases["k_boundary_ties"] = x
+    rng = np.random.default_rng(2)
+    x = rng.choice(np.float32([0.5, -0.5, 2.0, -2.0, 0.0]), size=(32, 4096))
+    x[0] = 0.0
+    x[1, ::3] = -0.0
+    cases["zeros_and_few_values"] = x.astype(np.float32)
+    rng = np.random.default_rng(3)
+    cases["padding"] = rng.standard_normal((36, 4096)).astype(np.float32)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((32, 4096)).astype(np.float32)
+    x[:, 7] = np.nan
+    x[:, 11] = np.inf
+    x[:, 13] = -np.inf
+    cases["nan_and_inf"] = x
+    return cases
+
+
+def numpy_select(x: np.ndarray, k: int = 128) -> np.ndarray:
+    """Stable argsort on ~(bits & 0x7FFFFFFF): the reference order."""
+    keys = ~(x.view(np.uint32) & 0x7FFFFFFF)
+    cls = (x > 0).astype(np.int32) + 2 * (x < 0).astype(np.int32)
+    order = np.argsort(keys, axis=-1, kind="stable")
+    return np.take_along_axis(cls, order, axis=-1)[:, :k]
