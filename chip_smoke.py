@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's extract -> match path once on one GPU.
+"""Drive the PyTorch/CUDA port's extract -> match path and its packed
+library path once on one GPU.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,18 @@ Phases (each failed check raises, and the script exits non-zero):
    one query against a 16,384-entry library.  Scores on a 256-entry
    sub-library equal the CPU path's within 1e-6; both kernels' launch
    counts over this phase are > 0.
+6. Library path on a 1,048,576-entry packed library (BASELINE config 5's
+   1M tracks; 31-80 subfingerprints an entry, built on the card from a
+   seed, with phase 5's fingerprints and near-duplicates planted).  First
+   the match kernel vs its plain version on 4,096-entry slices (ranges 0,
+   100, 37, 64; W=4 and W=2; ragged counts) within 1e-6, and its time at
+   65,536 and 1M entries.  Then, with the launch counts reset,
+   ``FingerprintLibrary.match`` over 1M, ``search`` at the shipped
+   defaults for 16 planted queries (top-1 = the full scan's argmax, score
+   equal to its bit), ``search_many``/``match_many`` at B=8, ``extend``,
+   ``save``/``load`` on a 16,384-entry sub-library, and the CLI's
+   ``enroll`` + ``identify --top-k 3``; the match kernel's launch count
+   over this part is > 0.
 
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` name
 and power limit, and the device JSON.
@@ -38,6 +51,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 N_CLIPS = 256
 CLIP_SECONDS = 10.0
 N_LIBRARY = 16384
+N_BIG = 1 << 20                  # BASELINE config 5: 1M tracks
+BIG_S = 80                       # subfingerprint bucket of 5-15 s clips
+MATCH_TOL = 1e-6
 SELECT_SHAPE = (14336, 4096)     # 256 clips x 56 frames
 ROWS_TOL = dict(rtol=5e-4, atol_scale=3e-6)
 
@@ -303,6 +319,242 @@ def phase_main_path(dev, rng, n_clips: int = N_CLIPS, n_library: int = N_LIBRARY
         out["match_ms"] = cuda_ms(lambda: match_one_vs_many_padded(qp, qn, nq, lp, ln, n_lib))
     print(f"  match_against_library(1 x {n_library}): call {out['match_call_s'] * 1e3:.1f} ms"
           f"; device {out.get('match_ms', float('nan')):.3f} ms", flush=True)
+    return out, fps
+
+
+def random_words(gen, dev, n: int, s: int, pairs: int):
+    """``[n, s, W]`` int32 (pos, neg) words and ``[n]`` counts in 31..80:
+    signs at random, ~3 % of pairs zero, pos/neg disjoint, bits above
+    ``pairs`` and rows past each count zero."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_tpu.utils.packing import words_per_plane
+    from lbaudiodetective_torch.ops.kernels.match_packed import prefix_mask_words
+
+    w = words_per_plane(pairs)
+
+    def rand():
+        return torch.randint(0, 256, (n, s, 4 * w), dtype=torch.uint8, generator=gen,
+                             device=dev).view(torch.int32)
+
+    counts = torch.randint(31, 81, (n,), dtype=torch.int32, generator=gen, device=dev)
+    sign = rand()
+    nz = ~(rand() & rand() & rand() & rand() & rand())
+    bits = torch.from_numpy(prefix_mask_words(pairs, w).view(np.int32)).to(dev)
+    past = (torch.arange(s, device=dev) >= counts[:, None])[..., None]
+    pos = (sign & nz & bits).masked_fill_(past, 0)
+    neg = (~sign & nz & bits).masked_fill_(past, 0)
+    return pos, neg, counts
+
+
+def plant(lib, idx: int, fp) -> None:
+    """Write fingerprint ``fp`` into entry ``idx`` of a library in place."""
+    import torch
+
+    pw, nw = fp.packed()
+    n = fp.num_subfingerprints
+    lib.pos_words[idx].zero_()
+    lib.neg_words[idx].zero_()
+    lib.pos_words[idx, :n] = torch.from_numpy(pw.view("int32")).to(lib.device)
+    lib.neg_words[idx, :n] = torch.from_numpy(nw.view("int32")).to(lib.device)
+    lib.counts[idx] = n
+
+
+def flipped(fp, rng, rate: float = 0.05):
+    import numpy as np
+
+    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+
+    flips = rng.random(fp.pos.shape) < rate
+    pos = np.where(flips, 1 - fp.pos, fp.pos).astype(np.uint8)
+    return Fingerprint(pos, (fp.neg * (1 - pos)).astype(np.uint8))
+
+
+def build_big_library(dev, fps):
+    """The 1M-entry library with phase 5's fingerprints planted: the
+    originals of clips 0-15, and for clips 0-7 crops at offsets 1-3 and a
+    5 % bit-flip copy.  Returns the library, the 16 planted queries (5 %
+    flips of clips 0-7 drawn anew, crops of clips 8-15 at offsets 1-3),
+    each query's planted original and the clip of every planted entry."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    lib = FingerprintLibrary(*random_words(gen, dev, N_BIG, BIG_S, 100), 100,
+                             FingerprintConfig())
+    rng = np.random.default_rng(6)
+    slots = rng.choice(N_BIG, size=16 + 8 * 4, replace=False)
+    for i in range(16):
+        plant(lib, int(slots[i]), fps[i])
+    dups = [Fingerprint(fps[i].pos[k:], fps[i].neg[k:]) for i in range(8) for k in (1, 2, 3)]
+    dups += [flipped(fps[i], rng) for i in range(8)]
+    for slot, fp in zip(slots[16:], dups):
+        plant(lib, int(slot), fp)
+    queries = [flipped(fps[i], rng) for i in range(8)]
+    queries += [Fingerprint(fps[i].pos[1 + i % 3:], fps[i].neg[1 + i % 3:])
+                for i in range(8, 16)]
+    clip_of = dict(zip(slots.tolist(), list(range(16)) + [i for i in range(8) for _ in "123"]
+                       + list(range(8))))
+    return lib, queries, [int(x) for x in slots[:16]], clip_of
+
+
+def phase_match_kernel(dev, lib, smi: str) -> dict:
+    """The match kernel against its plain version, and its times."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_torch.ops.kernels.match_packed import (
+        match_one_vs_many_fused, match_one_vs_many_fused_plain)
+    from lbaudiodetective_torch.ops.match_packed import _mask_pairs
+
+    print("[6a] match kernel vs plain", flush=True)
+    err = 0.0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    w2 = random_words(gen, dev, 4096, BIG_S, 64)
+    for pairs, length, (lp, ln, nl), ranges in (
+            (100, 200, (lib.pos_words[:4096], lib.neg_words[:4096], lib.counts[:4096]),
+             (0, 100, 37, 64)),
+            (64, 128, w2, (0, 37))):
+        nl = nl.clone()
+        nl[:3] = torch.tensor([0, 5, int(nl[3])])          # empty, shorter, equal
+        qp, qn = lp[[3, 100]].contiguous(), ln[[3, 100]].contiguous()
+        nq = nl[[3, 100]].contiguous()
+        for cr in ranges:
+            m = _mask_pairs(pairs, cr, length)
+            got = match_one_vs_many_fused(qp, qn, nq, lp, ln, nl, m)
+            exp = match_one_vs_many_fused_plain(qp, qn, nq, lp, ln, nl, m)
+            e = float((got - exp).abs().max())
+            err = max(err, e)
+            check(e <= MATCH_TOL, f"W={lp.shape[2]} range {cr}: kernel within {MATCH_TOL:g} "
+                                  f"of plain on 4096 entries (max abs err {e:.3e})")
+            if cr == 0:
+                check(abs(float(got[0, 3]) - 1.0) <= MATCH_TOL and got[0, 0] == 0.0
+                      and abs(float(got[1, 100]) - 1.0) <= MATCH_TOL,
+                      f"W={lp.shape[2]}: self-matches 1.0, empty entry 0.0")
+    qp, qn, nq = lib.pos_words[3:4], lib.neg_words[3:4], lib.counts[3:4]
+    sub = (lib.pos_words[:65536], lib.neg_words[:65536], lib.counts[:65536])
+    ms = cuda_ms(lambda: match_one_vs_many_fused(qp, qn, nq, *sub, 100))
+    plain_ms = cuda_ms(lambda: match_one_vs_many_fused_plain(qp, qn, nq, *sub, 100),
+                       iters=2, warmup=1)
+    big_ms = cuda_ms(lambda: match_one_vs_many_fused(qp, qn, nq, lib.pos_words,
+                                                     lib.neg_words, lib.counts, 100))
+    print(f"  match 1 x 65,536 x {BIG_S} rows: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"1 x {N_BIG:,}: kernel {big_ms:.3f} ms ({smi})", flush=True)
+    return {"name": "match_one_vs_many_fused", "route": "cuda",
+            "source": "lbaudiodetective_torch/csrc/match_packed.cu",
+            "replaces": "lbaudiodetective_tpu/ops/pallas/match_fused.py:138",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_1m": big_ms}
+
+
+def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
+    """The library path through FingerprintLibrary and the CLI."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.__main__ import main as cli
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+
+    print(f"[6b] library path: {len(lib):,} entries", flush=True)
+    out = {}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scores = lib.match(queries[8])
+        walls.append(time.perf_counter() - t0)
+    out["match_1m_wall_ms"] = float(np.median(walls)) * 1e3
+    check(scores.shape == (N_BIG,) and np.isfinite(scores).all()
+          and int(np.argmax(scores)) == originals[8] and scores[originals[8]] == 1.0,
+          f"match over {N_BIG:,}: the planted crop's original is the argmax (1.0)")
+
+    brute = [lib.match(q) for q in queries]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    walls, device_ms, results = [], [], []
+    for q in queries:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        results.append(lib.search(q))
+        end.record()
+        walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    out["search_wall_ms"] = float(np.median(walls)) * 1e3
+    out["search_device_ms"] = float(np.median(device_ms))
+    hits = sum(clip_of.get(int(idx[0])) == i for i, (idx, _) in enumerate(results))
+    for i, ((idx, sc), b) in enumerate(zip(results, brute)):
+        check(int(idx[0]) == int(np.argmax(b)) and sc[0] == b[idx[0]]
+              and np.array_equal(sc, b[idx]),
+              f"search query {i}: top-1 {int(idx[0])} = full-scan argmax, score "
+              f"{sc[0]:.6f} equal to the bit")
+    out["planted_found"] = hits
+    check(hits == 16, f"{hits}/16 planted queries name an entry planted from their clip")
+    many_idx, many_sc = lib.search_many(queries[:8])
+    check(all(np.array_equal(many_idx[i], results[i][0])
+              and np.array_equal(many_sc[i], results[i][1]) for i in range(8)),
+          "search_many at B=8 equals per-query search")
+    check(np.array_equal(lib.match_many(queries[:8]), np.stack(brute[:8])),
+          "match_many at B=8 equals the stacked match")
+    print(f"  match 1 x {N_BIG:,}: {out['match_1m_wall_ms']:.3f} ms wall; search (shortlist "
+          f"1024, stride 4, range 64, all phases): {out['search_wall_ms']:.3f} ms wall, "
+          f"{out['search_device_ms']:.3f} ms device span, median of 16 ({smi})", flush=True)
+
+    n_sub = 16384
+    pw = lib.pos_words[:n_sub].cpu().numpy().view(np.uint32)
+    nw = lib.neg_words[:n_sub].cpu().numpy().view(np.uint32)
+    counts = lib.counts[:n_sub].cpu().numpy()
+    sub_fps = [Fingerprint.from_packed(pw[i, :n], nw[i, :n], 100)
+               for i, n in enumerate(counts)]
+    cfg = lib.config
+    fresh = FingerprintLibrary.from_fingerprints(sub_fps, cfg, dev)
+    grown = FingerprintLibrary.from_fingerprints(sub_fps[:8192], cfg, dev).extend(
+        sub_fps[8192:])
+    check(all(torch.equal(a, b) for a, b in (
+        (fresh.pos_words, lib.pos_words[:n_sub]), (fresh.neg_words, lib.neg_words[:n_sub]),
+        (grown.pos_words, fresh.pos_words), (grown.neg_words, fresh.neg_words),
+        (grown.counts, fresh.counts))), "extend equals from_fingerprints on 16,384 entries")
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh.save(f"{tmp}/lib.npz")
+        loaded = FingerprintLibrary.load(f"{tmp}/lib.npz", cfg, dev)
+        check(torch.equal(loaded.pos_words, fresh.pos_words)
+              and np.array_equal(loaded.match(queries[0]), fresh.match(queries[0])),
+              "save/load round-trips")
+        try:
+            FingerprintLibrary.load(f"{tmp}/lib.npz", FingerprintConfig(analysis_stride=32), dev)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "a config with another parameter hash is refused")
+
+        sig = brown_noise(np.random.default_rng(9), 8, 5 * 44100)
+        sig = 0.5 * sig / np.abs(sig).max(axis=1, keepdims=True)
+        pathlib.Path(f"{tmp}/tracks").mkdir()
+        for i, x in enumerate(sig):
+            write_wav(f"{tmp}/tracks/t{i}.wav", x, 44100)
+        # The crop starts one subfingerprint in: 128 rows of 8 samples at
+        # 5512 Hz, ~8192.7 samples at 44.1 kHz.
+        write_wav(f"{tmp}/crop.wav", sig[3][8193:8193 + 3 * 44100], 44100)
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rcs = (cli(["enroll", f"{tmp}/tracks", "-o", f"{tmp}/cli.npz",
+                        "--device", str(dev)]),
+                   cli(["identify", f"{tmp}/crop.wav", "--library", f"{tmp}/cli.npz",
+                        "--top-k", "3", "--device", str(dev)]))
+        check(rcs == (0, 0), "CLI enroll + identify exit 0")
+        answer = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(answer["track"] == "t3" and len(answer["top"]) == 3,
+              f"CLI identify --top-k 3 names the crop's track: {answer}")
     return out
 
 
@@ -349,15 +601,26 @@ def main() -> int:
     records = [phase_select(dev, rng), phase_rows(dev, rng)]
 
     kernels.reset_launch_counts()
-    main_out = phase_main_path(dev, rng)
+    main_out, fps = phase_main_path(dev, rng)
     counts = kernels.launch_counts()
-    for name, n in counts.items():
-        check(n > 0, f"main path launched {name} {n} times")
     for r in records:
+        check(counts[r["name"]] > 0, f"main path launched {r['name']} {counts[r['name']]} times")
         r["launches"] = counts[r["name"]]
-    check("jax" not in sys.modules, "no JAX module was imported")
     print(f"  on {smi}: {main_out['clips_per_s']:.1f} clips/s at B={N_CLIPS}, "
           f"1 x {N_LIBRARY} match {main_out['match_ms']:.3f} ms", flush=True)
+
+    t0 = time.perf_counter()
+    lib, queries, originals, clip_of = build_big_library(dev, fps)
+    torch.cuda.synchronize()
+    print(f"[6] {N_BIG:,}-entry library built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    records.append(phase_match_kernel(dev, lib, smi))
+    kernels.reset_launch_counts()
+    main_out["library"] = phase_library(dev, lib, queries, originals, clip_of, smi)
+    n = kernels.launch_counts()["match_one_vs_many_fused"]
+    check(n > 0, f"library path launched match_one_vs_many_fused {n} times")
+    records[-1]["launches"] = n
+    check("jax" not in sys.modules, "no JAX module was imported")
 
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"kernels": records}))

@@ -1,14 +1,16 @@
 """LBAudioDetective on PyTorch and CUDA: the port of ``lbaudiodetective_tpu``.
 
-The extract -> match path runs on a torch device; on CUDA the extraction
-goes through hand-written Hopper kernels (``ops.kernels``).  Decoding,
-resampling, the configuration and the Fingerprint value type are the
-reference package's host-only modules, imported unchanged.  This package
-never imports JAX.
+The extract -> match path and the packed library run on a torch device; on
+CUDA the extraction and the library's matcher go through hand-written
+Hopper kernels (``ops.kernels``).  Decoding, resampling, the configuration,
+the Fingerprint value type and the library file format are the reference
+package's host-only modules, imported unchanged.  This package never
+imports JAX.
 
     FingerprintConfig   -- frozen, hashable pipeline configuration
     Fingerprint         -- value type holding subfingerprint bits
     AudioDetective      -- decode -> extract -> match on one device
+    FingerprintLibrary  -- packed, device-resident library: match, search
     extract_fingerprint -- single-clip extraction
     match_fingerprints  -- offset-sliding matcher
 
@@ -22,6 +24,7 @@ _EXPORTS = {
     "Fingerprint": "lbaudiodetective_tpu.models.fingerprint",
     "FingerprintBuilder": "lbaudiodetective_tpu.models.fingerprint",
     "AudioDetective": "lbaudiodetective_torch.models.detective",
+    "FingerprintLibrary": "lbaudiodetective_torch.models.library",
     "FingerprintExtractor": "lbaudiodetective_torch.ops.extract",
     "extract_fingerprint": "lbaudiodetective_torch.ops.extract",
     "match_fingerprints": "lbaudiodetective_torch.ops.match",

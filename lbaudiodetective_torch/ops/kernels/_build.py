@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``lbaudiodetective_torch/csrc/`` are compiled by ``nvcc``
-for ``sm_90a`` (H100) into one shared library with a plain C interface,
-which is loaded with ``ctypes``.  The build runs on first use, never at
-import, into ``build/torch_kernels/`` beside the package; the file name
-carries a hash of the sources, so an edited source is rebuilt.
+for ``sm_90a`` (H100), one process per ``.cu`` file, all started together,
+and linked into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  The build runs on first use, never at import,
+into ``build/torch_kernels/`` beside the package; the file name carries a
+hash of the sources, so an edited source is rebuilt.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -52,13 +53,31 @@ def build() -> pathlib.Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_suffix(f".{src.stem}.o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so
 
 
@@ -77,6 +96,11 @@ def load_library() -> ctypes.CDLL:
             lib.lbad_fused_rows.restype = i
             lib.lbad_fused_rows_smem_bytes.argtypes = [i]
             lib.lbad_fused_rows_smem_bytes.restype = i
+            lib.lbad_match_packed.argtypes = [p, p, p, i, i, p, p, p, ll, i, i, i, i,
+                                              p, p]
+            lib.lbad_match_packed.restype = i
+            lib.lbad_match_packed_smem_bytes.argtypes = [i, i, i, i, i]
+            lib.lbad_match_packed_smem_bytes.restype = ll
             _lib = lib
         return _lib
 

@@ -59,6 +59,16 @@ def _diagonal_view(x: torch.Tensor, n_out: int, n_terms: int,
                         (*x.stride()[:-2], out_stride, term_stride))
 
 
+def _sum_in_order(terms: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis one term at a time, in ascending order, as the
+    reference's roll loop does: float32 addition is not associative, and
+    this order gives the reference's bits (and the packed kernel's)."""
+    total = torch.zeros(terms.shape[:-1], dtype=terms.dtype, device=terms.device)
+    for i in range(terms.shape[-1]):
+        total = total + terms[..., i]
+    return total
+
+
 def banded_diagonal_sums(sim: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
     """``D[..., o] = sum_{i < n2} sim[..., o+i, i]`` for o in [0, S1).
 
@@ -72,7 +82,7 @@ def banded_diagonal_sums(sim: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
     i_idx = torch.arange(s2, device=sim.device)
     masked = sim * (i_idx < n2[..., None, None]).to(sim.dtype)
     padded = F.pad(masked, (0, 0, 0, s2))                    # [..., S1 + S2, S2]
-    return _diagonal_view(padded, s1, s2, s2, s2 + 1).sum(-1)
+    return _sum_in_order(_diagonal_view(padded, s1, s2, s2, s2 + 1))
 
 
 def offset_scores(sim: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
@@ -183,7 +193,7 @@ def _both_orientation_scores(hits: torch.Tensor, inv_lib: torch.Tensor,
     i_idx = torch.arange(s_lib, device=hits.device)
     masked_b = sim_b * (i_idx[None, :] < n_lib[:, None]).to(sim_b.dtype)[..., None]
     padded = F.pad(masked_b, (0, s_lib))                     # [L, Sl, Sq + Sl]
-    total_b = _diagonal_view(padded, s_q, s_lib, 1, s_q + s_lib + 1).sum(-1)
+    total_b = _sum_in_order(_diagonal_view(padded, s_q, s_lib, 1, s_q + s_lib + 1))
     means_b = total_b / torch.clamp(n_lib, min=1).to(sim_b.dtype)[:, None]
     o_valid_b = torch.arange(s_q, device=hits.device)[None, :] <= (nq - n_lib)[:, None]
     score_b = torch.where(o_valid_b, means_b, torch.zeros_like(means_b)).amax(-1)

@@ -75,3 +75,41 @@ def numpy_select(x: np.ndarray, k: int = 128) -> np.ndarray:
     cls = (x > 0).astype(np.int32) + 2 * (x < 0).astype(np.int32)
     order = np.argsort(keys, axis=-1, kind="stable")
     return np.take_along_axis(cls, order, axis=-1)[:, :k]
+
+
+def sign_planes(rng, shape):
+    """Random disjoint (pos, neg) {0,1} uint8 planes."""
+    cls = rng.choice(3, size=shape)
+    return (cls == 1).astype(np.uint8), (cls == 2).astype(np.uint8)
+
+
+def ragged_case(seed: int, pairs: int, l: int = 128, nq: int = 32, s: int = 64):
+    """The packed-matcher cases of tests/test_match_fused.py: ragged counts,
+    including an empty entry, one shorter than the query (orientation B)
+    and one equal to it (a single offset); planes zero past each count."""
+    rng = np.random.default_rng(seed)
+    lib_pos, lib_neg = sign_planes(rng, (l, s, pairs))
+    q_pos, q_neg = sign_planes(rng, (s, pairs))
+    n_lib = rng.integers(1, s + 1, size=l).astype(np.int32)
+    n_lib[:3] = (0, 5, nq)
+    for i in range(l):
+        lib_pos[i, n_lib[i]:] = 0
+        lib_neg[i, n_lib[i]:] = 0
+    q_pos[nq:] = 0
+    q_neg[nq:] = 0
+    return q_pos, q_neg, nq, lib_pos, lib_neg, n_lib
+
+
+def synthetic_library(seed: int = 7, n: int = 64, s: int = 48, pairs: int = 100):
+    """tests/test_library.py's perturbed-variant library: entry 11 is the
+    least perturbed copy of the query."""
+    rng = np.random.default_rng(seed)
+    base_pos = (rng.random((s, pairs)) < 0.45).astype(np.uint8)
+    base_neg = ((rng.random((s, pairs)) < 0.45) & (base_pos == 0)).astype(np.uint8)
+    pos, neg = [], []
+    for i in range(n):
+        flips = rng.random((s, pairs)) < (0.02 if i == 11 else 0.30)
+        p = np.where(flips, 1 - base_pos, base_pos).astype(np.uint8)
+        pos.append(p)
+        neg.append(np.where(flips & (p == 0), 1 - base_neg, base_neg * (1 - p)).astype(np.uint8))
+    return base_pos, base_neg, np.stack(pos), np.stack(neg)

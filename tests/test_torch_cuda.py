@@ -6,7 +6,9 @@ runs there on its own:
 
 Each kernel is held to its plain version on the same tensors on the card;
 the tolerance of the rows kernel is the reference's (rtol 5e-4, atol
-3e-6 * max|coeff|: f32 summation order differs)."""
+3e-6 * max|coeff|: f32 summation order differs); the match kernel's is
+1e-6 (both add the diagonal terms in the same order, so they agree to the
+last bit unless the compiler reorders)."""
 
 import numpy as np
 import pytest
@@ -19,10 +21,14 @@ from lbaudiodetective_torch.ops.constants import constants_to_tensors  # noqa: E
 from lbaudiodetective_torch.ops.extract import required_padded_length  # noqa: E402
 from lbaudiodetective_torch.ops.kernels.fused_rows import (  # noqa: E402
     fused_band_rows, fused_band_rows_plain, rows_arrays)
+from lbaudiodetective_torch.ops.kernels.match_packed import (  # noqa: E402
+    match_one_vs_many_fused, match_one_vs_many_fused_plain)
 from lbaudiodetective_torch.ops.kernels.select_signs import (  # noqa: E402
     select_sign_classes, select_sign_classes_plain)
+from lbaudiodetective_torch.ops.match_packed import _mask_pairs, pack_bits_device  # noqa: E402
 from tests._torch_common import (  # noqa: E402,F401
-    bit_agreement, brown_noise, cuda_device, numpy_select, select_cases, synth_clip)
+    bit_agreement, brown_noise, cuda_device, numpy_select, ragged_case, select_cases,
+    synth_clip)
 
 pytestmark = pytest.mark.cuda
 CASES = select_cases()
@@ -71,7 +77,8 @@ def test_cuda_extraction_runs_kernels_and_equals_cpu(cuda_device):
     counts = kernels.launch_counts()
     # A 4 s clip takes the fused classes mode; a single clip that fits one
     # 8-tile step takes coefficients + the standalone select.
-    assert counts == {"select_sign_classes": 1, "fused_band_rows": 2}
+    assert counts == {"select_sign_classes": 1, "fused_band_rows": 2,
+                      "match_one_vs_many_fused": 0}
     refs = [cpu.process_decoded(long_clip), cpu.process_decoded(short_clip)]
     for f, r in zip(fps, refs):
         assert f.num_subfingerprints == r.num_subfingerprints
@@ -87,3 +94,66 @@ def test_unported_config_raises_on_cuda(cuda_device):
     cfg = FingerprintConfig(integer_hop=False)
     with pytest.raises(NotImplementedError, match="fused_band_rows"):
         extract_fingerprint(synth_clip(73, 2.0, cfg), cfg, device=cuda_device)
+
+
+def _words(plane, dev):
+    return pack_bits_device(torch.from_numpy(np.ascontiguousarray(plane)).to(dev))
+
+
+MATCH_CASES = {"range0": (100, 0, 200), "range100": (100, 100, 200),
+               "range37": (100, 37, 200), "range64": (100, 64, 200),
+               "w2_range0": (64, 0, 128), "w2_range37": (64, 37, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(MATCH_CASES))
+def test_match_kernel_matches_plain(case, cuda_device):
+    """Ragged counts (0, shorter than the query, equal to it), W=4 and W=2,
+    words with bit 31 set; a batch of three queries incl. two self-matches."""
+    pairs, comparison_range, length = MATCH_CASES[case]
+    q_pos, q_neg, nq, lib_pos, lib_neg, n_lib = ragged_case(31, pairs)
+    lp, ln = _words(lib_pos, cuda_device), _words(lib_neg, cuda_device)
+    assert bool((lp < 0).any())                       # bit 31 set somewhere
+    nl = torch.from_numpy(n_lib).to(cuda_device)
+    qp = torch.stack([_words(q_pos, cuda_device), lp[7], lp[2]])
+    qn = torch.stack([_words(q_neg, cuda_device), ln[7], ln[2]])
+    nqs = torch.tensor([nq, n_lib[7], n_lib[2]], dtype=torch.int32, device=cuda_device)
+    m = _mask_pairs(pairs, comparison_range, length)
+    before = match_one_vs_many_fused.launches
+    got = match_one_vs_many_fused(qp, qn, nqs, lp, ln, nl, m)
+    torch.cuda.synchronize()
+    assert match_one_vs_many_fused.launches == before + 1
+    exp = match_one_vs_many_fused_plain(qp, qn, nqs, lp, ln, nl, m)
+    assert float((got - exp).abs().max()) <= 1e-6
+    assert got[0, 0] == 0.0
+    for row, i in ((1, 7), (2, 2)):
+        assert abs(float(got[row, i]) - 1.0) <= 1e-6 and got[row].max() == got[row, i]
+    one = match_one_vs_many_fused(qp[1:2], qn[1:2], nqs[1:2], lp, ln, nl, m)
+    assert torch.equal(one[0], got[1])
+
+
+def test_match_kernel_refuses_too_long_entries(cuda_device):
+    words = torch.zeros((1, 4000, 4), dtype=torch.int32, device=cuda_device)
+    n = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        match_one_vs_many_fused(words, words, n, words, words, n, 100)
+
+
+def test_cuda_library_search_equals_match_and_cpu(cuda_device):
+    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+
+    _, _, _, lib_pos, lib_neg, n_lib = ragged_case(32, 100, l=600, nq=40)
+    fps = [Fingerprint(p[:n], q[:n]) for p, q, n in zip(lib_pos, lib_neg, n_lib)]
+    gpu = FingerprintLibrary.from_fingerprints(fps, device=cuda_device)
+    cpu = FingerprintLibrary.from_fingerprints(fps)
+    query = Fingerprint(lib_pos[9][2:n_lib[9]], lib_neg[9][2:n_lib[9]])
+    kernels.reset_launch_counts()
+    brute = gpu.match(query)
+    idx, scores = gpu.search(query, top_k=3, shortlist=64)
+    assert kernels.launch_counts()["match_one_vs_many_fused"] == 3
+    assert idx[0] == int(np.argmax(brute)) == 9
+    np.testing.assert_array_equal(scores, brute[idx])
+    np.testing.assert_allclose(brute, cpu.match(query), rtol=0, atol=1e-6)
+    cidx, cscores = cpu.search(query, top_k=3, shortlist=64)
+    np.testing.assert_array_equal(idx, cidx)
+    np.testing.assert_allclose(scores, cscores, rtol=0, atol=1e-6)

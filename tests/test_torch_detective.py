@@ -88,6 +88,14 @@ def test_port_imports_no_jax(tmp_path):
         "fp = det.process_decoded(clip)\n"
         "assert fp.num_subfingerprints > 0\n"
         "assert det.compare_fingerprints(fp, fp) == 1.0\n"
+        "import lbaudiodetective_torch.__main__ as cli\n"
+        "from lbaudiodetective_torch.ops import match_packed\n"
+        "from lbaudiodetective_torch.models.library import FingerprintLibrary\n"
+        "assert lbaudiodetective_torch.FingerprintLibrary is FingerprintLibrary\n"
+        "lib = FingerprintLibrary.from_fingerprints([fp, fp], cfg)\n"
+        "assert lib.identify(fp) == (0, 1.0)\n"
+        "assert lib.search(fp, top_k=1, shortlist=1)[1][0] == 1.0\n"
+        "cli.build_parser().parse_args(['identify', 'x.wav', '--library', 'l.npz'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('NO_JAX_OK')\n")
     env = dict(os.environ)
