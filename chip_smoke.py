@@ -17,15 +17,17 @@ Phases (each failed check raises, and the script exits non-zero):
    oracle on two clips.
 5. Main path through ``AudioDetective(device="cuda")``: 256 ten-second
    clips in parity mode, a written WAV, a compare of two written WAVs, and
-   one query against a 16,384-entry library.  Scores on a 256-entry
-   sub-library equal the CPU path's within 1e-6; both kernels' launch
-   counts over this phase are > 0.
+   one query against a 16,384-entry library (the packed match kernel).
+   Scores on a 256-entry sub-library equal the CPU path's within 1e-6; the
+   three kernels' launch counts over this phase are > 0.
 6. Library path on a 1,048,576-entry packed library (BASELINE config 5's
    1M tracks; 31-80 subfingerprints an entry, built on the card from a
    seed, with phase 5's fingerprints and near-duplicates planted).  First
    the match kernel vs its plain version on 4,096-entry slices (ranges 0,
-   100, 37, 64; W=4 and W=2; ragged counts) within 1e-6, and its time at
-   65,536 and 1M entries.  Then, with the launch counts reset,
+   100, 37, 64; W=4 and W=2; ragged counts; and the coarse pass's shape:
+   2 queries x 4 phases of 20 rows vs the strided library at range 64)
+   within 1e-6, and its time at 65,536 and 1M entries and for the coarse
+   pass over 1M.  Then, with the launch counts reset,
    ``FingerprintLibrary.match`` over 1M, ``search`` at the shipped
    defaults for 16 planted queries (top-1 = the full scan's argmax, score
    equal to its bit), ``search_many``/``match_many`` at B=8, ``extend``,
@@ -239,7 +241,6 @@ def phase_main_path(dev, rng, n_clips: int = N_CLIPS, n_library: int = N_LIBRARY
     from lbaudiodetective_tpu.io.wav import write_wav
     from lbaudiodetective_tpu.models.fingerprint import Fingerprint
     from lbaudiodetective_torch.models.detective import AudioDetective
-    from lbaudiodetective_torch.ops.match import match_one_vs_many_padded
 
     print(f"[5] main path on {dev}", flush=True)
     cfg = FingerprintConfig()
@@ -305,21 +306,42 @@ def phase_main_path(dev, rng, n_clips: int = N_CLIPS, n_library: int = N_LIBRARY
     err = float(np.abs(cpu_scores - scores[:256]).max())
     check(err <= 1e-6, f"GPU scores equal CPU scores on 256 entries (max err {err:.2e})")
 
-    s = 56
-    lp = torch.zeros((n_library, s, query.pairs), dtype=torch.uint8)
+    print(f"  match_against_library(1 x {n_library}): call "
+          f"{out['match_call_s'] * 1e3:.1f} ms", flush=True)
+    return out, fps, library
+
+
+def time_library_match(dev, library) -> dict:
+    """Device time of the call ``match_against_library`` makes on phase 5's
+    library (one packed kernel launch), and of PR 1's unpacked plain-torch
+    matcher on the same entries; run after phase 5's launch counts are read."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_tpu.utils.packing import words_per_plane
+    from lbaudiodetective_torch.models.library import pack_fingerprints
+    from lbaudiodetective_torch.ops.extract import bucket_subfingerprints
+    from lbaudiodetective_torch.ops.match import match_one_vs_many_padded
+    from lbaudiodetective_torch.ops.match_packed import match_one_vs_many_packed
+
+    s = bucket_subfingerprints(max(f.num_subfingerprints for f in library))
+    pairs = library[0].pairs
+    pw, nw, n_lib = (torch.from_numpy(a.view(np.int32)).to(dev)
+                     for a in pack_fingerprints(library, s, words_per_plane(pairs)))
+    out = {"match_ms": cuda_ms(lambda: match_one_vs_many_packed(
+        pw[:1], nw[:1], n_lib[:1], pw, nw, n_lib, pairs))}
+    lp = torch.zeros((len(library), s, pairs), dtype=torch.uint8)
     ln = torch.zeros_like(lp)
     for i, f in enumerate(library):
         lp[i, :f.num_subfingerprints] = torch.from_numpy(f.pos)
         ln[i, :f.num_subfingerprints] = torch.from_numpy(f.neg)
-    n_lib = torch.tensor([f.num_subfingerprints for f in library]).to(dev)
     lp, ln = lp.to(dev), ln.to(dev)
-    qp, qn = lp[0].clone(), ln[0].clone()
-    nq = torch.tensor(query.num_subfingerprints, device=dev)
-    if dev.type == "cuda":
-        out["match_ms"] = cuda_ms(lambda: match_one_vs_many_padded(qp, qn, nq, lp, ln, n_lib))
-    print(f"  match_against_library(1 x {n_library}): call {out['match_call_s'] * 1e3:.1f} ms"
-          f"; device {out.get('match_ms', float('nan')):.3f} ms", flush=True)
-    return out, fps
+    out["unpacked_plain_match_ms"] = cuda_ms(lambda: match_one_vs_many_padded(
+        lp[0], ln[0], n_lib[0], lp, ln, n_lib))
+    print(f"  1 x {len(library)} match on the device: {out['match_ms']:.3f} ms (packed "
+          f"kernel), {out['unpacked_plain_match_ms']:.3f} ms (unpacked plain matcher)",
+          flush=True)
+    return out
 
 
 def random_words(gen, dev, n: int, s: int, pairs: int):
@@ -404,14 +426,16 @@ def build_big_library(dev, fps):
     return lib, queries, [int(x) for x in slots[:16]], clip_of
 
 
-def phase_match_kernel(dev, lib, smi: str) -> dict:
+def phase_match_kernel(dev, lib, queries, smi: str) -> dict:
     """The match kernel against its plain version, and its times."""
     import numpy as np
     import torch
 
+    from lbaudiodetective_torch.models.library import CHUNK, stack_query_planes
     from lbaudiodetective_torch.ops.kernels.match_packed import (
         match_one_vs_many_fused, match_one_vs_many_fused_plain)
-    from lbaudiodetective_torch.ops.match_packed import _mask_pairs
+    from lbaudiodetective_torch.ops.match_packed import (
+        _mask_pairs, phase_strided_query_planes)
 
     print("[6a] match kernel vs plain", flush=True)
     err = 0.0
@@ -438,6 +462,25 @@ def phase_match_kernel(dev, lib, smi: str) -> dict:
                 check(abs(float(got[0, 3]) - 1.0) <= MATCH_TOL and got[0, 0] == 0.0
                       and abs(float(got[1, 100]) - 1.0) <= MATCH_TOL,
                       f"W={lp.shape[2]}: self-matches 1.0, empty entry 0.0")
+    # The coarse pass's shape, which most of a search's launches have: two
+    # queries x 4 phases = 8 rows of Sc = 20 against the strided library
+    # (the planes search uses), ragged counts, 64 booleans compared.
+    lp_c, ln_c, cnt_c, _ = lib._coarse_planes(4, CHUNK)
+    lp, ln, nl = lp_c[:4096], ln_c[:4096], cnt_c[:4096].clone()
+    qp, qn, nq = stack_query_planes([queries[0], queries[8]], BIG_S)
+    qcp, qcn, nc = phase_strided_query_planes(qp, qn, nq, 4)
+    qcpw, qcnw = lib._query_words(qcp.reshape(8, *qcp.shape[2:]),
+                                  qcn.reshape(8, *qcn.shape[2:]))
+    nc = torch.from_numpy(nc.reshape(8)).to(dev)
+    nl[:3] = torch.tensor([0, 2, int(nc[0])])              # empty, shorter, equal
+    m = _mask_pairs(100, 64, 200)
+    got = match_one_vs_many_fused(qcpw, qcnw, nc, lp, ln, nl, m)
+    exp = match_one_vs_many_fused_plain(qcpw, qcnw, nc, lp, ln, nl, m)
+    e = float((got - exp).abs().max())
+    err = max(err, e)
+    check(got.shape == (8, 4096) and e <= MATCH_TOL,
+          f"coarse shape [8, 20, 4] x 4096 strided entries, range 64: kernel within "
+          f"{MATCH_TOL:g} of plain (max abs err {e:.3e})")
     qp, qn, nq = lib.pos_words[3:4], lib.neg_words[3:4], lib.counts[3:4]
     sub = (lib.pos_words[:65536], lib.neg_words[:65536], lib.counts[:65536])
     ms = cuda_ms(lambda: match_one_vs_many_fused(qp, qn, nq, *sub, 100))
@@ -445,12 +488,16 @@ def phase_match_kernel(dev, lib, smi: str) -> dict:
                        iters=2, warmup=1)
     big_ms = cuda_ms(lambda: match_one_vs_many_fused(qp, qn, nq, lib.pos_words,
                                                      lib.neg_words, lib.counts, 100))
+    coarse_ms = cuda_ms(lambda: match_one_vs_many_fused(qcpw[:4], qcnw[:4], nc[:4], lp_c,
+                                                        ln_c, cnt_c, m))
     print(f"  match 1 x 65,536 x {BIG_S} rows: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-          f"1 x {N_BIG:,}: kernel {big_ms:.3f} ms ({smi})", flush=True)
+          f"1 x {N_BIG:,}: kernel {big_ms:.3f} ms; coarse pass (4 phases x {N_BIG:,} x 20 "
+          f"rows, range 64): kernel {coarse_ms:.3f} ms ({smi})", flush=True)
     return {"name": "match_one_vs_many_fused", "route": "cuda",
             "source": "lbaudiodetective_torch/csrc/match_packed.cu",
             "replaces": "lbaudiodetective_tpu/ops/pallas/match_fused.py:138",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_1m": big_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_1m": big_ms,
+            "coarse_ms_1m": coarse_ms}
 
 
 def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
@@ -470,7 +517,7 @@ def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
     print(f"[6b] library path: {len(lib):,} entries", flush=True)
     out = {}
     walls = []
-    for _ in range(3):
+    for _ in range(7):
         t0 = time.perf_counter()
         scores = lib.match(queries[8])
         walls.append(time.perf_counter() - t0)
@@ -601,11 +648,14 @@ def main() -> int:
     records = [phase_select(dev, rng), phase_rows(dev, rng)]
 
     kernels.reset_launch_counts()
-    main_out, fps = phase_main_path(dev, rng)
+    main_out, fps, library = phase_main_path(dev, rng)
     counts = kernels.launch_counts()
+    for name in (*(r["name"] for r in records), "match_one_vs_many_fused"):
+        check(counts[name] > 0, f"main path launched {name} {counts[name]} times")
     for r in records:
-        check(counts[r["name"]] > 0, f"main path launched {r['name']} {counts[r['name']]} times")
         r["launches"] = counts[r["name"]]
+    match_launches = counts["match_one_vs_many_fused"]
+    main_out.update(time_library_match(dev, library))
     print(f"  on {smi}: {main_out['clips_per_s']:.1f} clips/s at B={N_CLIPS}, "
           f"1 x {N_LIBRARY} match {main_out['match_ms']:.3f} ms", flush=True)
 
@@ -614,12 +664,12 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[6] {N_BIG:,}-entry library built on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    records.append(phase_match_kernel(dev, lib, smi))
+    records.append(phase_match_kernel(dev, lib, queries, smi))
     kernels.reset_launch_counts()
     main_out["library"] = phase_library(dev, lib, queries, originals, clip_of, smi)
     n = kernels.launch_counts()["match_one_vs_many_fused"]
     check(n > 0, f"library path launched match_one_vs_many_fused {n} times")
-    records[-1]["launches"] = n
+    records[-1]["launches"] = match_launches + n
     check("jax" not in sys.modules, "no JAX module was imported")
 
     print(json.dumps({"main_path": main_out}))

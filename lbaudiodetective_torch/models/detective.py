@@ -14,9 +14,12 @@ import torch
 from lbaudiodetective_tpu.config import FingerprintConfig
 from lbaudiodetective_tpu.io.decode import DecodedAudio, decode_audio_file
 from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+from lbaudiodetective_tpu.utils.packing import words_per_plane
+from lbaudiodetective_torch.models.library import pack_fingerprints
 from lbaudiodetective_torch.ops.extract import (
     bucket_subfingerprints, extract_fingerprint, extract_fingerprint_batch)
-from lbaudiodetective_torch.ops.match import match_fingerprints, match_one_vs_many_padded
+from lbaudiodetective_torch.ops.match import match_fingerprints
+from lbaudiodetective_torch.ops.match_packed import match_one_vs_many_packed
 
 
 class AudioDetective:
@@ -129,27 +132,21 @@ class AudioDetective:
     def match_against_library(self, query: Fingerprint,
                               library: list[Fingerprint],
                               comparison_range: int = 0) -> np.ndarray:
-        """One-vs-many: returns ``[len(library)]`` match scores."""
+        """One-vs-many: returns ``[len(library)]`` match scores.  The
+        planes are packed on the host and scored by the packed matcher (the
+        match kernel on CUDA, one launch), whose scores equal the
+        reference's unpacked ``match_one_vs_many_padded`` to the bit."""
         if not library:
             return np.zeros(0, dtype=np.float32)
         s_max = bucket_subfingerprints(max(max(f.num_subfingerprints for f in library),
                                            query.num_subfingerprints, 1))
-        pairs = query.pairs
-        lib_pos = np.zeros((len(library), s_max, pairs), np.uint8)
-        lib_neg = np.zeros((len(library), s_max, pairs), np.uint8)
-        for i, f in enumerate(library):
-            lib_pos[i, :f.num_subfingerprints] = f.pos
-            lib_neg[i, :f.num_subfingerprints] = f.neg
-        qp = np.zeros((s_max, pairs), np.uint8)
-        qn = np.zeros((s_max, pairs), np.uint8)
-        qp[:query.num_subfingerprints] = query.pos
-        qn[:query.num_subfingerprints] = query.neg
-        n_lib = np.array([f.num_subfingerprints for f in library], np.int64)
+        w = words_per_plane(query.pairs)
         dev = self.device
-        scores = match_one_vs_many_padded(
-            torch.from_numpy(qp).to(dev), torch.from_numpy(qn).to(dev),
-            torch.tensor(query.num_subfingerprints, device=dev),
-            torch.from_numpy(lib_pos).to(dev), torch.from_numpy(lib_neg).to(dev),
-            torch.from_numpy(n_lib).to(dev),
+        lib_pos, lib_neg, n_lib = (torch.from_numpy(a.view(np.int32)).to(dev)
+                                   for a in pack_fingerprints(library, s_max, w))
+        q_pos, q_neg, n_q = (torch.from_numpy(a.view(np.int32)).to(dev)
+                             for a in pack_fingerprints([query], s_max, w))
+        scores = match_one_vs_many_packed(
+            q_pos, q_neg, n_q, lib_pos, lib_neg, n_lib, query.pairs,
             comparison_range, self.config.subfingerprint_length)
-        return scores.cpu().numpy()
+        return scores[0].cpu().numpy()

@@ -24,10 +24,10 @@ from lbaudiodetective_tpu.models.fingerprint import Fingerprint
 from lbaudiodetective_tpu.utils import packing, serialize
 from lbaudiodetective_torch.ops.extract import bucket_subfingerprints
 from lbaudiodetective_torch.ops.match_packed import (
-    match_one_vs_many_packed, pack_bits_device, phase_strided_query_planes,
-    two_stage_search_packed)
+    entries_per_call, match_one_vs_many_packed, pack_bits_device,
+    phase_strided_query_planes, two_stage_search_packed)
 
-#: Library entries per matcher call (bounds the plain version's hit planes).
+#: Library entries per call of the plain matcher (bounds its hit planes).
 CHUNK = 65536
 
 
@@ -48,7 +48,7 @@ def stack_query_planes(queries: list[Fingerprint], s: int
     return qp, qn, nq
 
 
-def _pack_fingerprints(fps: list[Fingerprint], s: int, w: int
+def pack_fingerprints(fps: list[Fingerprint], s: int, w: int
                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``[len(fps), s, w]`` uint32 planes + int32 counts."""
     pos = np.zeros((len(fps), s, w), np.uint32)
@@ -132,7 +132,7 @@ class FingerprintLibrary:
             raise ValueError("empty library")
         pairs = fps[0].pairs
         s_max = bucket_subfingerprints(max(f.num_subfingerprints for f in fps))
-        pos, neg, counts = _pack_fingerprints(fps, s_max, packing.words_per_plane(pairs))
+        pos, neg, counts = pack_fingerprints(fps, s_max, packing.words_per_plane(pairs))
         return cls.from_arrays(pos, neg, counts, pairs, config, device)
 
     def __len__(self) -> int:
@@ -149,7 +149,7 @@ class FingerprintLibrary:
             raise ValueError("fingerprint pair count mismatch")
         l, s_old, w = self.pos_words.shape
         s_max = max(s_old, bucket_subfingerprints(max(f.num_subfingerprints for f in fps)))
-        new = _pack_fingerprints(fps, s_max, w)
+        new = pack_fingerprints(fps, s_max, w)
         planes = []
         for old, add in zip((self.pos_words, self.neg_words), new[:2]):
             grown = torch.zeros((l + len(fps), s_max, w), dtype=torch.int32,
@@ -183,23 +183,25 @@ class FingerprintLibrary:
 
     def _scores(self, queries: list[Fingerprint], comparison_range: int,
                 chunk: int) -> np.ndarray:
-        """``[B, L]`` scores, ``chunk`` entries per matcher call (bounding
-        the plain version's ``[chunk, S, Sq]`` hit planes; the kernel has
-        no transient)."""
+        """``[B, L]`` scores: ``chunk`` entries per call of the plain
+        version, one kernel launch on CUDA (``entries_per_call``)."""
         qp, qn, nq = stack_query_planes(queries, int(self.pos_words.shape[1]))
         qpw, qnw = self._query_words(qp, qn)
         nq = torch.from_numpy(nq).to(self.device)
+        step = entries_per_call(len(self), chunk, self.device)
         scores = torch.cat([
             match_one_vs_many_packed(
-                qpw, qnw, nq, self.pos_words[s:s + chunk], self.neg_words[s:s + chunk],
-                self.counts[s:s + chunk], self.pairs, comparison_range,
+                qpw, qnw, nq, self.pos_words[s:s + step], self.neg_words[s:s + step],
+                self.counts[s:s + step], self.pairs, comparison_range,
                 self.config.subfingerprint_length)
-            for s in range(0, len(self), chunk)], dim=1)
+            for s in range(0, len(self), step)], dim=1)
         return scores.cpu().numpy()
 
     def match(self, query: Fingerprint, comparison_range: int = 0,
               chunk: int = CHUNK) -> np.ndarray:
-        """``[L]`` match scores of a query against every entry."""
+        """``[L]`` match scores of a query against every entry (``chunk``
+        entries per call of the plain version; the kernel scans all in one
+        launch)."""
         return self._scores([query], comparison_range, chunk)[0]
 
     def match_many(self, queries: list[Fingerprint],

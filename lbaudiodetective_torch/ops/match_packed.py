@@ -72,6 +72,13 @@ def match_one_vs_many_packed(q_pos_w: torch.Tensor, q_neg_w: torch.Tensor, n_que
     return scores[0] if single else scores
 
 
+def entries_per_call(n_entries: int, chunk: int, device: torch.device) -> int:
+    """Library entries per matcher call: ``chunk`` for the plain version,
+    whose ``[chunk, S, Sq]`` hit planes it bounds; all of them on CUDA,
+    where the kernel holds no transient and one launch serves the scan."""
+    return max(n_entries, 1) if device.type == "cuda" else chunk
+
+
 def phase_strided_query_planes(qp, qn, n, stride: int,
                                phases: int | None = None):
     """Phase-shifted strided query planes for the phase-robust coarse pass.
@@ -132,8 +139,9 @@ def two_stage_search_packed(q_pos_w, q_neg_w, n_query,
     """Coarse -> exact library search on the library's device.
 
     The coarse planes (``libc_*``: subfingerprint axis subsampled, entry
-    axis zero-padded to a ``chunk`` multiple) are scanned chunk by chunk,
-    every query and phase in one matcher call per chunk; each entry's
+    axis zero-padded to a ``chunk`` multiple) are scanned chunk by chunk by
+    the plain version and in one launch by the kernel
+    (``entries_per_call``), every query and phase in each call; each entry's
     coarse score is its max over phases, and padding entries score -inf.
     The ``shortlist`` best coarse entries are gathered from the full planes
     and re-scored exactly by the same matcher, so an exact score equals
@@ -157,12 +165,13 @@ def two_stage_search_packed(q_pos_w, q_neg_w, n_query,
     b, n_phases = qc_pos_w.shape[:2]
     n_query_c = torch.as_tensor(n_query_c, dtype=torch.int32, device=dev).reshape(-1)
     qcp, qcn = (x.reshape(b * n_phases, *x.shape[2:]) for x in (qc_pos_w, qc_neg_w))
+    step = entries_per_call(lp, chunk, dev)
     coarse = torch.cat([
         match_one_vs_many_packed(
-            qcp, qcn, n_query_c, libc_pos_w[s:s + chunk], libc_neg_w[s:s + chunk],
-            n_lib_c[s:s + chunk], pairs, coarse_range, subfingerprint_length
+            qcp, qcn, n_query_c, libc_pos_w[s:s + step], libc_neg_w[s:s + step],
+            n_lib_c[s:s + step], pairs, coarse_range, subfingerprint_length
         ).reshape(b, n_phases, -1).amax(1)
-        for s in range(0, lp, chunk)], dim=1)
+        for s in range(0, lp, step)], dim=1)
     l = lib_pos_w.shape[0]
     coarse = torch.where(torch.arange(lp, device=dev) < l, coarse,
                          torch.full_like(coarse, -torch.inf))

@@ -131,6 +131,28 @@ def test_match_kernel_matches_plain(case, cuda_device):
     assert torch.equal(one[0], got[1])
 
 
+def test_match_kernel_matches_plain_at_coarse_shape(cuda_device):
+    """The shape of a search's coarse launches: 2 queries x 4 phases of
+    strided rows against the strided library, range 64 (one word compared),
+    ragged counts."""
+    from lbaudiodetective_torch.ops.match_packed import phase_strided_query_planes
+
+    q_pos, q_neg, nq, lib_pos, lib_neg, n_lib = ragged_case(33, 100, l=300, s=80)
+    qp = np.stack([q_pos, np.roll(q_pos, 3, axis=0)])
+    qn = np.stack([q_neg, np.roll(q_neg, 3, axis=0)])
+    qcp, qcn, nc = phase_strided_query_planes(qp, qn, np.array([nq, nq]), 4)
+    qcpw = _words(qcp.reshape(8, *qcp.shape[2:]), cuda_device)
+    qcnw = _words(qcn.reshape(8, *qcn.shape[2:]), cuda_device)
+    nc = torch.from_numpy(nc.reshape(8)).to(cuda_device)
+    lp, ln = _words(lib_pos[:, ::4], cuda_device), _words(lib_neg[:, ::4], cuda_device)
+    nl = torch.from_numpy(-(-n_lib // 4)).to(cuda_device)
+    m = _mask_pairs(100, 64, 200)
+    got = match_one_vs_many_fused(qcpw, qcnw, nc, lp, ln, nl, m)
+    exp = match_one_vs_many_fused_plain(qcpw, qcnw, nc, lp, ln, nl, m)
+    assert got.shape == (8, 300)
+    assert float((got - exp).abs().max()) <= 1e-6
+
+
 def test_match_kernel_refuses_too_long_entries(cuda_device):
     words = torch.zeros((1, 4000, 4), dtype=torch.int32, device=cuda_device)
     n = torch.ones(1, dtype=torch.int32, device=cuda_device)

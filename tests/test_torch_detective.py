@@ -65,6 +65,26 @@ def test_detective_matches_jax_detective(wavs):
     assert batch[0] == fps["a"] and batch[1] == fps["b"]
 
 
+@pytest.mark.parametrize("comparison_range", [0, 37])
+def test_match_against_library_equals_jax_on_ragged_entries(comparison_range):
+    """The port's match_against_library (packed matcher) vs the JAX
+    detective's (unpacked matcher) on ragged entries: empty, shorter than
+    the query, equal to it, longer.  Tolerance 1e-6 (f32 sums, added in
+    the same order)."""
+    from lbaudiodetective_tpu.models.detective import AudioDetective as JaxDetective
+    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from tests._torch_common import ragged_case
+
+    q_pos, q_neg, nq, lib_pos, lib_neg, n_lib = ragged_case(41, 100, l=40)
+    query = Fingerprint(q_pos[:nq], q_neg[:nq])
+    library = [Fingerprint(p[:n], q[:n]) for p, q, n in zip(lib_pos, lib_neg, n_lib)]
+    got = AudioDetective(device="cpu").match_against_library(query, library,
+                                                             comparison_range)
+    exp = JaxDetective().match_against_library(query, library, comparison_range)
+    assert got.shape == (40,) and got.dtype == np.float32 and got[0] == 0.0
+    np.testing.assert_allclose(got, exp, rtol=0, atol=1e-6)
+
+
 def test_detective_preferences_replace_config():
     det = AudioDetective()
     assert (det.processing_sample_rate, det.window_size, det.analysis_stride,

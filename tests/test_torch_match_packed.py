@@ -122,6 +122,14 @@ def test_kernel_wrapper_refuses_bad_input():
         tmp_.match_one_vs_many_packed(q[0], q[0], 1, lib, lib, nl, 64)
 
 
+def test_entries_per_call_chunks_only_the_plain_version():
+    """The plain version scans ``chunk`` entries a call; the kernel scans
+    the whole library in one launch."""
+    assert tmp_.entries_per_call(100_000, 65536, torch.device("cpu")) == 65536
+    assert tmp_.entries_per_call(100_000, 65536, torch.device("cuda", 0)) == 100_000
+    assert tmp_.entries_per_call(0, 16, torch.device("cuda")) == 1
+
+
 def test_phase_strided_query_planes_equal_jax():
     rng = np.random.default_rng(6)
     qp, qn = sign_planes(rng, (2, 21, 100))
