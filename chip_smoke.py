@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's extract -> match path and its packed
-library path once on one GPU.
+"""Drive the PyTorch/CUDA port's extract -> match path, its packed library
+path, every extraction config, the C-API layer and 256-stream streaming once
+on one GPU.
 
     python3 chip_smoke.py
 
@@ -35,6 +36,31 @@ Phases (each failed check raises, and the script exits non-zero):
    ``enroll`` + ``identify --top-k 3``; the match kernel's launch count
    over this part is > 0.
 
+7. Every extraction config.  The band-rows kernel (``csrc/band_rows.cu``)
+   against its plain version at batch 4 and 7,168 rows: rows mode at the
+   four fractional-hop configs (kernel 5), coefficients mode at
+   pitch_step_count=16, rows_per_frame=256 and subfingerprint_length=300
+   (kernel 2 at other geometries), and the v2 wrapper at hop 8 with and
+   without fuse_haar (kernel 4); within rtol 5e-4, atol 3e-6 * max, two runs
+   bit-identical, >= 99.9% of bits against the NumPy oracle on two clips at
+   integer_hop=False and at pitch_step_count=16; times at [4, 7168 rows]
+   beside the plain version and at [256, 7168 rows], the main path's launch
+   shape, where every clip is held against the plain version in slices of
+   16.  Then, with the launch counts reset,
+   ``AudioDetective(integer_hop=False)`` on 256 ten-second clips, the ``rows_impl="fused_v2"`` route, and the C-API layer on the card
+   (``LBAudioDetectiveNew(device="cuda")``, the geometry setters,
+   ``ProcessAudioURL``/``CompareAudioURLs`` on written WAVs) against the
+   CPU port; each band-rows wrapper's launch count over this part is > 0.
+8. Streaming, BASELINE config 4: ``StreamingExtractor(batch=256,
+   device="cuda")`` fed 10 s a stream on the aligned path (chunk 1024,
+   bit-equal to offline extraction on the card), the conv path (chunk 512)
+   and the fractional-hop gather path (chunk 1024), >= 99.9% of bits
+   against offline; ``torch.cuda.set_sync_debug_mode("error")`` while the
+   streams are fed, so no step makes the host wait; the real-time factor of
+   each; the essay's streaming names on a CUDA ``StreamingDetective``.  The
+   select and rows kernels' launch counts over the timed feeds and the
+   streaming names (not the offline references) are > 0.
+
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` name
 and power limit, and the device JSON.
 Needs one CUDA card; without one it exits 1 and prints no result.
@@ -42,6 +68,7 @@ Needs one CUDA card; without one it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import subprocess
@@ -167,15 +194,34 @@ def phase_select(dev, rng) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def within_rows_tol(got, exp) -> tuple[bool, float, float]:
+    scale = float(exp.abs().max())
+    diff = (got - exp).abs()
+    ok = bool((diff <= ROWS_TOL["atol_scale"] * scale + ROWS_TOL["rtol"] * exp.abs()).all())
+    return ok, float(diff.max()), scale
+
+
+def oracle_agreement(dev, rng, cfg, what: str) -> None:
+    """Two ten-second clips extracted on the card vs the NumPy oracle."""
+    from lbaudiodetective_tpu.oracle.pipeline import oracle_fingerprint
+    from lbaudiodetective_torch.ops.extract import extract_fingerprint_batch
+
+    clips = synth_clips(rng, cfg, 2, CLIP_SECONDS)
+    pos, neg, n_subs = extract_fingerprint_batch(clips, cfg, device=dev)
+    for i, clip in enumerate(clips):
+        opos, oneg = oracle_fingerprint(clip, cfg)
+        n = n_subs[i]
+        agree = ((pos[i, :n] == opos).mean() + (neg[i, :n] == oneg).mean()) / 2
+        check(n == opos.shape[0] and agree >= 0.999,
+              f"{what}: oracle clip {i}, {n} subfingerprints, bit agreement {agree:.5f}")
+
+
 def phase_rows(dev, rng, batch: int = 4, n_sub: int = 56) -> dict:
-    import numpy as np
     import torch
 
     from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.oracle.pipeline import oracle_fingerprint
     from lbaudiodetective_torch.ops.constants import constants_to_tensors
-    from lbaudiodetective_torch.ops.extract import (
-        extract_fingerprint_batch, required_padded_length)
+    from lbaudiodetective_torch.ops.extract import required_padded_length
     from lbaudiodetective_torch.ops.kernels.fused_rows import (
         fused_band_rows, fused_band_rows_plain, rows_arrays)
     from lbaudiodetective_torch.ops.kernels.select_signs import select_sign_classes
@@ -192,10 +238,7 @@ def phase_rows(dev, rng, batch: int = 4, n_sub: int = 56) -> dict:
             rng, batch, required_padded_length(cfg, n_rows))).to(dev)
         got = fused_band_rows(audio, cfg, n_rows, consts, emit="coeffs")
         exp = fused_band_rows_plain(audio, cfg, n_rows, consts, emit="coeffs")
-        scale = float(exp.abs().max())
-        err = float((got - exp).abs().max())
-        ok = bool(((got - exp).abs() <= ROWS_TOL["atol_scale"] * scale
-                   + ROWS_TOL["rtol"] * exp.abs()).all())
+        ok, err, scale = within_rows_tol(got, exp)
         check(ok, f"hop {hop}: coefficients within rtol 5e-4, atol 3e-6*max "
                   f"(max abs err {err:.3e}, max|coeff| {scale:.3e})")
         cls = fused_band_rows(audio, cfg, n_rows, consts, emit="classes")
@@ -221,15 +264,7 @@ def phase_rows(dev, rng, batch: int = 4, n_sub: int = 56) -> dict:
                       "replaces": "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:678",
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "main_shape_ms": main_ms}
-    cfg = FingerprintConfig()
-    clips = synth_clips(rng, cfg, 2, CLIP_SECONDS)
-    pos, neg, n_subs = extract_fingerprint_batch(clips, cfg, device=dev)
-    for i, clip in enumerate(clips):
-        opos, oneg = oracle_fingerprint(clip, cfg)
-        n = n_subs[i]
-        check(n == opos.shape[0], f"oracle clip {i}: {n} subfingerprints")
-        agree = ((pos[i, :n] == opos).mean() + (neg[i, :n] == oneg).mean()) / 2
-        check(agree >= 0.999, f"oracle clip {i}: bit agreement {agree:.5f} >= 0.999")
+    oracle_agreement(dev, rng, FingerprintConfig(), "parity")
     return record
 
 
@@ -605,6 +640,275 @@ def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
     return out
 
 
+#: Configs that reach the band-rows kernel (csrc/band_rows.cu) on CUDA.
+FRACTIONAL = {"oracle_mode": dict(integer_hop=False),
+              "rate_8000": dict(processing_sample_rate=8000.0, integer_hop=False),
+              "pitch_16": dict(pitch_step_count=16, integer_hop=False),
+              "rows_256": dict(rows_per_frame=256, integer_hop=False)}
+GEOMETRIES = {"pitch_16": dict(pitch_step_count=16), "rows_256": dict(rows_per_frame=256),
+              "length_300": dict(subfingerprint_length=300)}
+BAND_ROWS_N = 56 * 128           # 7168 rows: a 10 s clip at the parity hop
+MAIN_SLICE = 16                  # clips a plain-version slice at the main shape
+COMPAT_SETTERS = {"default": (), "pitch_16": (("SetNumberOfPitchSteps", 16),),
+                  "length_300": (("SetSubfingerprintLength", 300),),
+                  "stride_32": (("SetAnalysisStride", 32),)}
+
+
+def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
+    """The band-rows kernel against its plain version in rows mode (kernel
+    5; kernel 4 without fuse_haar) and coefficients mode (kernel 2 at other
+    geometries; kernel 4 with fuse_haar), and its times."""
+    import torch
+
+    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_torch.ops.extract import required_padded_length
+    from lbaudiodetective_torch.ops.kernels import band_rows
+
+    print("[7a] band-rows kernel vs plain", flush=True)
+    cases = [(f"rows {name}", FingerprintConfig(**kw), band_rows.fused_band_rows, {}, False)
+             for name, kw in FRACTIONAL.items()]
+    cases += [(f"v3 coefficients {name}", FingerprintConfig(**kw), band_rows.fused_band_rows_v3,
+               {"fuse_haar": True}, True) for name, kw in GEOMETRIES.items()]
+    cases += [(f"v2 hop 8 fuse_haar={fh}", FingerprintConfig(), band_rows.fused_band_rows_v2,
+               {"fuse_haar": fh}, fh) for fh in (False, True)]
+    err = {}
+    for label, cfg, fn, kw, coeffs in cases:
+        audio = torch.from_numpy(brown_noise(
+            rng, batch, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
+        got = fn(audio, cfg, BAND_ROWS_N, **kw)
+        exp = band_rows.band_rows_plain(audio, cfg, BAND_ROWS_N, coeffs)
+        ok, e, scale = within_rows_tol(got, exp)
+        check(ok, f"{label}: within rtol 5e-4, atol 3e-6*max (max abs err {e:.3e}, "
+                  f"max {scale:.3e})")
+        check(torch.equal(got, fn(audio, cfg, BAND_ROWS_N, **kw)),
+              f"{label}: two runs bit-identical")
+        err[fn.__name__] = max(err.get(fn.__name__, 0.0), e)
+    oracle_agreement(dev, rng, FingerprintConfig(integer_hop=False), "integer_hop=False")
+    oracle_agreement(dev, rng, FingerprintConfig(pitch_step_count=16), "pitch_step_count=16")
+
+    records = {}
+    for fn, cfg, kw, coeffs, replaces in (
+            (band_rows.fused_band_rows, FingerprintConfig(integer_hop=False), {}, False,
+             "lbaudiodetective_tpu/ops/pallas/fused_rows.py:148"),
+            (band_rows.fused_band_rows_v2, FingerprintConfig(), {"fuse_haar": True}, True,
+             "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:196"),
+            (band_rows.fused_band_rows_v3, FingerprintConfig(pitch_step_count=16),
+             {"fuse_haar": True}, True, "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:678")):
+        audio = torch.from_numpy(brown_noise(
+            rng, batch, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
+        ms = cuda_ms(lambda: fn(audio, cfg, BAND_ROWS_N, **kw))
+        plain_ms = cuda_ms(lambda: band_rows.band_rows_plain(audio, cfg, BAND_ROWS_N, coeffs),
+                           iters=5)
+        name = f"band_rows.{fn.__name__}"
+        print(f"  {name} [{batch}, {BAND_ROWS_N} rows] ({'coefficients' if coeffs else 'rows'}, "
+              f"hop {cfg.hop_in_processing_samples:.4f}, {cfg.pitch_step_count} bands): kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        records[name] = {"name": name, "route": "cuda",
+                         "source": "lbaudiodetective_torch/csrc/band_rows.cu",
+                         "replaces": replaces, "max_abs_err": err[fn.__name__],
+                         "ms": ms, "plain_ms": plain_ms}
+    cfg = FingerprintConfig(integer_hop=False)
+    main_audio = torch.from_numpy(brown_noise(
+        rng, N_CLIPS, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
+    main_ms = cuda_ms(lambda: band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N), iters=5)
+    records["band_rows.fused_band_rows"]["main_shape_ms"] = main_ms
+    print(f"  band_rows.fused_band_rows [{N_CLIPS}, {BAND_ROWS_N} rows] (fractional hop): "
+          f"kernel {main_ms:.3f} ms ({smi})", flush=True)
+    # The main path's launch shape, every clip against the plain version (in
+    # slices: the plain gather holds ~60 MB of windows a clip).
+    got = band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N)
+    worst, failed = 0.0, []
+    for i in range(0, N_CLIPS, MAIN_SLICE):
+        ok, e, _ = within_rows_tol(got[i:i + MAIN_SLICE], band_rows.band_rows_plain(
+            main_audio[i:i + MAIN_SLICE], cfg, BAND_ROWS_N))
+        worst = max(worst, e)
+        if not ok:
+            failed.append(i)
+    check(not failed, f"rows at [{N_CLIPS}, {BAND_ROWS_N} rows]: every clip within rtol 5e-4, "
+                      f"atol 3e-6*max of its slice (max abs err {worst:.3e}; slices failing "
+                      f"at clips {failed})")
+    rec = records["band_rows.fused_band_rows"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+    return records
+
+
+def phase_every_config(dev, rng) -> dict:
+    """The paths that run the band-rows kernel: the fractional-hop batch
+    through AudioDetective, the reference's rows_impl="fused_v2" route, and
+    the C-API layer with the setters that change the frame geometry."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective_torch import compat
+    from lbaudiodetective_torch.models.detective import AudioDetective
+    from lbaudiodetective_torch.ops.extract import (
+        extract_fingerprint_padded, required_padded_length)
+
+    print("[7b] every config: fractional-hop batch, fused_v2 route, compat", flush=True)
+    out = {}
+    cfg = FingerprintConfig(integer_hop=False)
+    det = AudioDetective(cfg, device=dev)
+    clips = synth_clips(rng, cfg, N_CLIPS, CLIP_SECONDS)
+    t0 = time.perf_counter()
+    fps = det.process_decoded_batch(clips)
+    torch.cuda.synchronize()
+    out["fractional_first_batch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fps2 = det.process_decoded_batch(clips)
+    out["fractional_batch_s"] = time.perf_counter() - t0
+    out["fractional_clips_per_s"] = N_CLIPS / out["fractional_batch_s"]
+    n_exp = cfg.num_subfingerprints(clips[0].file_frames, clips[0].proc_frames)
+    check(all(f.num_subfingerprints == n_exp for f in fps),
+          f"{N_CLIPS} fractional-hop fingerprints of {n_exp} subfingerprints")
+    check(all(a == b for a, b in zip(fps, fps2)), "repeated batch bit-identical")
+    ref = AudioDetective(cfg, device="cpu").process_decoded_batch(clips[:2])
+    for i, f in enumerate(ref):
+        agree = ((f.pos == fps[i].pos).mean() + (f.neg == fps[i].neg).mean()) / 2
+        check(agree >= 0.999, f"fractional clip {i}: {agree:.5f} of bits equal to the CPU path")
+    print(f"  AudioDetective(integer_hop=False).process_decoded_batch({N_CLIPS} x "
+          f"{CLIP_SECONDS:g} s): {out['fractional_batch_s'] * 1e3:.1f} ms warm "
+          f"({out['fractional_clips_per_s']:.1f} clips/s), first call "
+          f"{out['fractional_first_batch_s'] * 1e3:.1f} ms", flush=True)
+
+    parity = FingerprintConfig()
+    n_rows = 8 * parity.rows_per_frame
+    audio = torch.from_numpy(brown_noise(rng, 8, required_padded_length(parity, n_rows))).to(dev)
+    n_valid = torch.full((8,), 8, dtype=torch.int32, device=dev)
+    v2 = extract_fingerprint_padded(audio, n_valid, parity, n_rows, rows_impl="fused_v2")
+    v3 = extract_fingerprint_padded(audio, n_valid, parity, n_rows)
+    agree = float(sum((a == b).float().mean() for a, b in zip(v2, v3))) / 2
+    check(agree >= 0.999, f"rows_impl='fused_v2' vs the default route: {agree:.5f} of bits")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = f"{tmp}/a.wav", f"{tmp}/b.wav"
+        sig = brown_noise(rng, 1, int(5 * 44100))[0]
+        sig = 0.5 * sig / np.abs(sig).max()
+        write_wav(a, sig, 44100)
+        write_wav(b, sig + 0.01 * rng.standard_normal(sig.shape[0]).astype(np.float32), 44100)
+        for case, setters in COMPAT_SETTERS.items():
+            gpu, cpu = compat.LBAudioDetectiveNew(device=dev), compat.LBAudioDetectiveNew(
+                device="cpu")
+            for name, value in setters:
+                getattr(compat, "LBAudioDetective" + name)(gpu, value)
+                getattr(compat, "LBAudioDetective" + name)(cpu, value)
+            fp = compat.LBAudioDetectiveProcessAudioURL(gpu, a)
+            cfp = compat.LBAudioDetectiveProcessAudioURL(cpu, a)
+            agree = ((fp.pos == cfp.pos).mean() + (fp.neg == cfp.neg).mean()) / 2
+            check(fp.num_subfingerprints == cfp.num_subfingerprints > 0 and agree >= 0.999,
+                  f"compat {case}: ProcessAudioURL on the card, {fp.num_subfingerprints} "
+                  f"subfingerprints, {agree:.5f} of bits equal to the CPU port")
+            score = compat.LBAudioDetectiveCompareAudioURLs(gpu, a, b)
+            fb = compat.LBAudioDetectiveGetFingerprint(gpu)
+            same = cpu.compare_fingerprints(fp, fb)
+            raw = compat.LBAudioDetectiveFingerprintCompareToFingerprint(fp, fb, 37, device=dev)
+            raw_cpu = compat.LBAudioDetectiveFingerprintCompareToFingerprint(fp, fb, 37,
+                                                                             device="cpu")
+            check(0.0 < score <= 1.0 and abs(score - same) <= MATCH_TOL
+                  and abs(raw - raw_cpu) <= MATCH_TOL,
+                  f"compat {case}: CompareAudioURLs {score:.6f} (CPU port on the same "
+                  f"fingerprints {same:.6f}), range-37 compare {raw:.6f}")
+    return out
+
+
+def stream_offline(dev, cfg, audio, rows_done: int):
+    """Offline extraction on the card of the samples the streams received,
+    cut to the rows they have (file_frames chosen so the offline row count
+    equals the stream's)."""
+    from lbaudiodetective_tpu.io.decode import DecodedAudio
+    from lbaudiodetective_torch.ops.extract import extract_fingerprint_batch
+
+    file_frames = rows_done * cfg.analysis_stride + cfg.window_size
+    clips = [DecodedAudio(x, cfg.processing_sample_rate, file_frames, cfg.file_sample_rate)
+             for x in audio]
+    return extract_fingerprint_batch(clips, cfg, device=dev)
+
+
+def phase_streaming(dev, rng, smi: str) -> tuple[dict, collections.Counter]:
+    """BASELINE config 4: 256 concurrent streams fed 10 s each through the
+    three step paths, against offline extraction on the card; the host is
+    never made to wait for the device while the streams are fed.  Returns
+    the measurements and the kernels' launch counts summed over the timed
+    feeds and the streaming names: the offline references are not counted."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_torch import compat
+    from lbaudiodetective_torch.ops import kernels
+    from lbaudiodetective_torch.streaming import StreamingDetective, StreamingExtractor
+
+    print(f"[8] streaming: {N_CLIPS} streams x {CLIP_SECONDS:g} s", flush=True)
+    out, counts = {}, collections.Counter()
+    aligned_audio = None
+    for name, cfg, chunk in (("aligned", FingerprintConfig(), 1024),
+                             ("conv", FingerprintConfig(), 512),
+                             ("gather", FingerprintConfig(integer_hop=False), 1024)):
+        steps = int(CLIP_SECONDS * cfg.processing_sample_rate) // chunk
+        audio = brown_noise(rng, N_CLIPS, steps * chunk)
+        chunks = [np.ascontiguousarray(audio[:, s * chunk:(s + 1) * chunk]) for s in range(steps)]
+        ext = StreamingExtractor(batch=N_CLIPS, chunk_size=chunk, config=cfg, device=dev,
+                                 collect_host=False)
+        check((ext.aligned, ext.use_conv) == (name == "aligned", name == "conv"),
+              f"{name}: chunk {chunk} takes the {name} step")
+        for c in chunks[:8]:                 # warm-up: constants, cuDNN, allocator
+            ext.feed(c)
+        ext.reset()
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")    # any host wait raises
+        try:
+            t0 = time.perf_counter()
+            for c in chunks:
+                ext.feed(c)
+            enqueued = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        counts.update(kernels.launch_counts())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stream_s = steps * chunk / cfg.processing_sample_rate
+        rtf = N_CLIPS * stream_s / wall
+        out[f"{name}_rtf"] = rtf
+        out[f"{name}_wall_s"] = wall
+        fps = ext.fingerprints()
+        pos, neg, n_subs = stream_offline(dev, cfg, audio, ext.rows_done)
+        n = ext.rows_done // cfg.rows_per_frame
+        check(n > 0 and all(f.num_subfingerprints == n for f in fps)
+              and all(int(k) >= n for k in n_subs),
+              f"{name}: {n} subfingerprints a stream, as offline")
+        spos = np.stack([f.pos for f in fps])
+        sneg = np.stack([f.neg for f in fps])
+        if name == "aligned":
+            check(np.array_equal(spos, pos[:, :n]) and np.array_equal(sneg, neg[:, :n]),
+                  f"{name}: bit-equal to offline extraction on the card")
+            aligned_audio, aligned_fp = audio[0], fps[0]
+        else:
+            agree = ((spos == pos[:, :n]).mean() + (sneg == neg[:, :n]).mean()) / 2
+            check(agree >= 0.999, f"{name}: {agree:.5f} of bits equal to offline extraction")
+        print(f"  {name} (chunk {chunk}, hop {cfg.hop_in_processing_samples:.4f}): "
+              f"{wall * 1e3:.1f} ms for {steps} steps ({enqueued * 1e3:.1f} ms to enqueue), "
+              f"real-time factor {rtf:.1f} ({smi})", flush=True)
+
+    det = StreamingDetective(FingerprintConfig(), chunk_size=1024, device=dev)
+    done = []
+    kernels.reset_launch_counts()
+    compat.LBAudioDetectiveProcess(det, 2, done.append)
+    det.process_samples(aligned_audio[:2048])          # no frame yet
+    compat.LBAudioDetectivePauseProcessing(det)
+    det.process_samples(np.zeros(4096, np.float32))    # ignored while paused
+    compat.LBAudioDetectiveResumeProcessing(det)
+    det.process_samples(aligned_audio[2048:8192])
+    counts.update(kernels.launch_counts())
+    check(len(done) == 1 and done[0].num_subfingerprints == 2
+          and np.array_equal(done[0].pos, aligned_fp.pos[:2])
+          and np.array_equal(done[0].neg, aligned_fp.neg[:2]),
+          "compat streaming names on the card: 2 subfingerprints, equal to stream 0's")
+    return out, counts
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -670,6 +974,20 @@ def main() -> int:
     n = kernels.launch_counts()["match_one_vs_many_fused"]
     check(n > 0, f"library path launched match_one_vs_many_fused {n} times")
     records[-1]["launches"] = match_launches + n
+
+    band = phase_band_rows(dev, rng, smi)
+    kernels.reset_launch_counts()
+    main_out["every_config"] = phase_every_config(dev, rng)
+    counts = kernels.launch_counts()
+    for name in band:
+        check(counts[name] > 0, f"every-config path launched {name} {counts[name]} times")
+        band[name]["launches"] = counts[name]
+    main_out["streaming"], counts = phase_streaming(dev, rng, smi)
+    for name in ("select_sign_classes", "fused_band_rows"):
+        check(counts[name] > 0, f"streaming launched {name} {counts[name]} times")
+    for r in (*records, *band.values()):
+        r["launches"] += counts[r["name"]]
+    records += band.values()
     check("jax" not in sys.modules, "no JAX module was imported")
 
     print(json.dumps({"main_path": main_out}))

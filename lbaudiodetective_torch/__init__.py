@@ -1,8 +1,9 @@
 """LBAudioDetective on PyTorch and CUDA: the port of ``lbaudiodetective_tpu``.
 
-The extract -> match path and the packed library run on a torch device; on
-CUDA the extraction and the library's matcher go through hand-written
-Hopper kernels (``ops.kernels``).  Decoding, resampling, the configuration,
+The extract -> match path, the packed library, the streaming runtime and the
+C-API name layer (``compat``) run on a torch device; on CUDA the extraction
+and the library's matcher go through hand-written Hopper kernels
+(``ops.kernels``).  Decoding, resampling, the configuration,
 the Fingerprint value type and the library file format are the reference
 package's host-only modules, imported unchanged.  This package never
 imports JAX.
@@ -11,6 +12,8 @@ imports JAX.
     Fingerprint         -- value type holding subfingerprint bits
     AudioDetective      -- decode -> extract -> match on one device
     FingerprintLibrary  -- packed, device-resident library: match, search
+    StreamingExtractor  -- incremental extraction for B lockstep streams
+    StreamingDetective  -- single-stream Start/Stop/Pause/Resume API
     extract_fingerprint -- single-clip extraction
     match_fingerprints  -- offset-sliding matcher
 
@@ -28,6 +31,8 @@ _EXPORTS = {
     "FingerprintExtractor": "lbaudiodetective_torch.ops.extract",
     "extract_fingerprint": "lbaudiodetective_torch.ops.extract",
     "match_fingerprints": "lbaudiodetective_torch.ops.match",
+    "StreamingExtractor": "lbaudiodetective_torch.streaming.runtime",
+    "StreamingDetective": "lbaudiodetective_torch.streaming.runtime",
 }
 
 __all__ = list(_EXPORTS)

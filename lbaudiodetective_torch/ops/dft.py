@@ -11,9 +11,18 @@ The vDSP 2x output scale is folded into the stage-2 twiddles.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from lbaudiodetective_torch.ops.constants import STAGE1, dft_constants
+
+
+@lru_cache(maxsize=16)
+def _dft_tensors(n: int, bin_lo: int, bin_hi: int, device: str) -> tuple[torch.Tensor, ...]:
+    """``dft_constants`` on ``device``, copied there once (a copy per call
+    would make the host wait for the device)."""
+    return tuple(torch.from_numpy(a).to(device) for a in dft_constants(n, bin_lo, bin_hi))
 
 
 def rdft_bins(windows: torch.Tensor, bin_lo: int, bin_hi: int
@@ -25,9 +34,7 @@ def rdft_bins(windows: torch.Tensor, bin_lo: int, bin_hi: int
     n = windows.shape[-1]
     if not (1 <= bin_lo and bin_hi <= n // 2):
         raise ValueError("rdft_bins requires bins inside (0, n/2)")
-    dev = windows.device
-    c1, s1, t_re, t_im, perm = (torch.from_numpy(a).to(dev)
-                                for a in dft_constants(n, bin_lo, bin_hi))
+    c1, s1, t_re, t_im, perm = _dft_tensors(n, bin_lo, bin_hi, str(windows.device))
     y = windows.reshape(*windows.shape[:-1], STAGE1, n // STAGE1)   # [..., a, b]
     g_re = torch.einsum("...ab,ar->...br", y, c1)
     g_im = torch.einsum("...ab,ar->...br", y, s1)

@@ -7,20 +7,26 @@
 Clips are padded to a bucket length; the number of valid subfingerprints
 travels beside them and trailing subfingerprints are zeroed.
 
-Rows implementation, as the reference chooses it on an accelerator
-(``lbaudiodetective_tpu/ops/extract.py:96-122``), with this port's devices:
+Rows implementation, under the reference's names and as the reference picks
+it (``lbaudiodetective_tpu/ops/extract.py:96-122``, CUDA standing for its
+accelerator):
 
-- "v3": integer hop dividing 128, window 2048, 128 x 32 frames, k <= 128.
-  CUDA runs the fused rows kernel (``ops.kernels.fused_rows``); CPU its
-  plain version.  A single clip that fits one 8-tile step takes the
-  coefficients and the standalone select kernel, as the reference does
-  (``lbaudiodetective_tpu/ops/extract.py:60-70``).
+- "fused_v3": integer hop dividing 128, window 2048.  On CUDA the fused
+  rows kernel (``ops.kernels.fused_rows``, 128 x 32 frames, k <= 128) or the
+  band-rows kernel's coefficients (``ops.kernels.band_rows``, every other
+  frame geometry), then the select.  On the CPU only at 128 x 32, as the
+  plain version of the fused rows kernel.
+- "fused": fractional hop on CUDA: the band-rows kernel's rows at the
+  host-computed window starts, then Haar and select.
+- "fused_v2": only when asked for (``rows_impl="fused_v2"``): the band-rows
+  kernel's coefficients at an integer hop dividing 128.
 - "conv": other integer hops; strided convolutions, then Haar and select.
-- "xla": window gather + matrix DFT (fractional hop, CPU only) or packed
+- "xla": window gather + matrix DFT (fractional hop on the CPU) or packed
   rfft (bins touching 0 or window/2, any device).
-- A config whose reference path reaches a TPU kernel that has no CUDA port
-  yet raises ``NotImplementedError`` on CUDA; it never runs plain torch
-  there instead.
+
+A config the reference's kernels refuse (window 1024 with a fractional hop)
+raises ``ValueError`` on CUDA, as the reference does on its accelerator; no
+CUDA path runs the plain versions of the kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
     bands_in_interior, constants_to_tensors, conv_constants, haar_matrix)
 from lbaudiodetective_torch.ops.haar import haar_2d
+from lbaudiodetective_torch.ops.kernels import band_rows
 from lbaudiodetective_torch.ops.kernels.fused_rows import (
     fused_band_rows, kernel_eligible, reaches_v3, rows_arrays)
 from lbaudiodetective_torch.ops.kernels.select_signs import (
@@ -45,37 +52,32 @@ from lbaudiodetective_torch.ops.kernels.select_signs import (
 
 def rows_impl(config: FingerprintConfig, device: torch.device) -> str:
     """The rows implementation for ``config`` on ``device`` (see the module
-    docstring); raises ``NotImplementedError`` for unported CUDA kernels."""
+    docstring)."""
     cuda = device.type == "cuda"
     if not bands_in_interior(config):
         return "xla"          # bin 0 / negative band edges: packed rfft only
-    if kernel_eligible(config):
-        return "v3"
-    if reaches_v3(config):
-        if cuda:
-            raise NotImplementedError(
-                "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py::"
-                f"fused_band_rows_v3 at rows_per_frame={config.rows_per_frame}, "
-                f"pitch_step_count={config.pitch_step_count} has no CUDA port")
-        return "conv"
     if config.has_integer_hop:
+        if reaches_v3(config) and (cuda or kernel_eligible(config)):
+            return "fused_v3"
         return "conv"
-    if cuda:
-        raise NotImplementedError(
-            "lbaudiodetective_tpu/ops/pallas/fused_rows.py::fused_band_rows "
-            "(fractional hop) has no CUDA port")
-    return "xla"
+    return "fused" if cuda else "xla"
 
 
 def extractor_arrays(config: FingerprintConfig, impl: str) -> dict[str, np.ndarray]:
     """NumPy constants that the ``impl`` rows path reads."""
-    if impl == "v3":
+    if impl == "fused_v3" and kernel_eligible(config):
         return rows_arrays(config)
+    if impl in ("fused_v3", "fused_v2"):
+        return band_rows.band_rows_arrays(config, haar=True)
     arrays = {"h_rows": haar_matrix(config.rows_per_frame),
               "h_cols": haar_matrix(config.pitch_step_count)}
-    if impl == "conv":
+    if impl == "fused":
+        arrays.update(band_rows.band_rows_arrays(config, haar=False))
+    elif impl == "conv":
         w1, w2, proj_perm, _ = conv_constants(config)
         arrays.update(conv_w1=w1, conv_w2=w2, proj_perm=proj_perm)
+    elif impl != "xla":
+        raise ValueError(f"unknown rows_impl {impl!r}")
     return arrays
 
 
@@ -108,61 +110,87 @@ def subfingerprints_from_rows(rows: torch.Tensor, config: FingerprintConfig,
         topcls = select_sign_classes(flat.reshape(-1, n)).reshape(
             *lead, n_sub, TOP)[..., :k]
     else:
+        # The reference runs its select kernel only for 4096-wide frames and
+        # k <= 128; other frames take its XLA stable sort, whose port is this
+        # sort on every device (not a stand-in for a kernel).
         topcls = select_sign_classes_plain(flat, k)
     return (topcls == 1).to(torch.uint8), (topcls == 2).to(torch.uint8)
 
 
 class FingerprintExtractor(nn.Module):
     """Extraction for one config on one device.  Holds the constant
-    matrices of the chosen rows path as buffers; ``arrays`` replaces the
-    NumPy constants (for example with the JAX package's own)."""
+    matrices of the chosen rows path as buffers (and those of another path
+    once a call asks for it); ``arrays`` replaces the NumPy constants of the
+    chosen path (for example with the JAX package's own)."""
 
     def __init__(self, config: FingerprintConfig | None = None,
                  device: torch.device | str = "cpu",
                  arrays: dict[str, np.ndarray] | None = None):
         super().__init__()
         self.config = config or FingerprintConfig()
-        device = torch.device(device)
-        self.impl = rows_impl(self.config, device)
+        self.device = torch.device(device)
+        self.impl = rows_impl(self.config, self.device)
         if arrays is None:
             arrays = extractor_arrays(self.config, self.impl)
-        for name, t in constants_to_tensors(arrays, device).items():
+        for name, t in constants_to_tensors(arrays, self.device).items():
             self.register_buffer(name, t, persistent=False)
+        self._other_consts: dict[str, dict[str, torch.Tensor]] = {}
 
     @property
     def consts(self) -> dict[str, torch.Tensor]:
         return dict(self.named_buffers())
 
+    def consts_for(self, impl: str) -> dict[str, torch.Tensor]:
+        """The constant tensors of the ``impl`` rows path."""
+        if impl == self.impl:
+            return self.consts
+        if impl not in self._other_consts:
+            self._other_consts[impl] = constants_to_tensors(
+                extractor_arrays(self.config, impl), self.device)
+        return self._other_consts[impl]
+
     def forward(self, audio: torch.Tensor, n_valid_sub: torch.Tensor,
-                n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+                n_rows: int, rows_impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
         """audio ``[B, T]`` or ``[T]`` float32, padded so the last window
-        fits; n_valid_sub ``[B]`` or scalar.  Returns (pos, neg) uint8
-        ``[..., n_rows / rows_per_frame, pairs]``, invalid subfingerprints
-        zeroed."""
+        fits; n_valid_sub ``[B]`` or scalar.  ``rows_impl`` is "auto" (the
+        extractor's own choice) or one of "fused_v3", "fused_v2", "fused",
+        "conv", "xla".  Returns (pos, neg) uint8 ``[..., n_rows /
+        rows_per_frame, pairs]``, invalid subfingerprints zeroed."""
         cfg = self.config
         if n_rows % cfg.rows_per_frame:
             raise ValueError("n_rows must be a multiple of rows_per_frame")
+        impl = self.impl if rows_impl == "auto" else rows_impl
         batched = audio if audio.dim() == 2 else audio[None]
-        consts = self.consts
+        consts = self.consts_for(impl)
         n_sub = n_rows // cfg.rows_per_frame
         k = cfg.num_wavelet_pairs
-        if self.impl == "v3":
-            if batched.shape[0] == 1 and _single_step(n_sub):
-                coeffs = fused_band_rows(batched, cfg, n_rows, consts, emit="coeffs")
-                pos, neg = subfingerprints_from_rows(coeffs, cfg, consts,
-                                                     rows_are_coeffs=True)
-            else:
-                topcls = fused_band_rows(batched, cfg, n_rows, consts)[..., :k]
-                pos = (topcls == 1).to(torch.uint8)
-                neg = (topcls == 2).to(torch.uint8)
+        fused_128x32 = impl == "fused_v3" and kernel_eligible(cfg)
+        if fused_128x32 and not (batched.shape[0] == 1 and _single_step(n_sub)):
+            # The kernel selects in place; a single clip that fits one 8-tile
+            # step takes coefficients + the standalone select, as the
+            # reference does (lbaudiodetective_tpu/ops/extract.py:60-70).
+            topcls = fused_band_rows(batched, cfg, n_rows, consts)[..., :k]
+            pos = (topcls == 1).to(torch.uint8)
+            neg = (topcls == 2).to(torch.uint8)
         else:
-            if self.impl == "conv":
+            if fused_128x32:
+                rows = fused_band_rows(batched, cfg, n_rows, consts, emit="coeffs")
+            elif impl == "fused_v3":
+                rows = band_rows.fused_band_rows_v3(batched, cfg, n_rows, consts,
+                                                    fuse_haar=True)
+            elif impl == "fused_v2":
+                rows = band_rows.fused_band_rows_v2(batched, cfg, n_rows, consts,
+                                                    fuse_haar=True)
+            elif impl == "fused":
+                rows = band_rows.fused_band_rows(batched, cfg, n_rows, consts)
+            elif impl == "conv":
                 rows = spectral.conv_band_rows(batched, cfg, n_rows, consts)
             else:
                 starts = spectral.window_starts(cfg, n_rows)
                 windows = spectral.frame_windows(batched, starts, cfg.window_size)
                 rows = spectral.band_energies(windows, cfg)
-            pos, neg = subfingerprints_from_rows(rows, cfg, consts)
+            pos, neg = subfingerprints_from_rows(
+                rows, cfg, consts, rows_are_coeffs=impl in ("fused_v3", "fused_v2"))
         n_valid = torch.as_tensor(n_valid_sub, device=pos.device).reshape(-1)
         valid = (torch.arange(n_sub, device=pos.device)[None, :]
                  < n_valid[:, None]).to(torch.uint8)[..., None]
@@ -178,13 +206,14 @@ def get_extractor(config: FingerprintConfig, device: str = "cpu") -> Fingerprint
 
 def extract_fingerprint_padded(audio: torch.Tensor, n_valid_sub: torch.Tensor,
                                config: FingerprintConfig, n_rows: int,
+                               rows_impl: str = "auto",
                                extractor: FingerprintExtractor | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Extraction over padded audio already on its device (see
     :meth:`FingerprintExtractor.forward`)."""
     if extractor is None:
         extractor = get_extractor(config, str(audio.device))
-    return extractor(audio, n_valid_sub, n_rows)
+    return extractor(audio, n_valid_sub, n_rows, rows_impl)
 
 
 def required_padded_length(config: FingerprintConfig, n_rows: int) -> int:

@@ -1,0 +1,236 @@
+"""Band rows (or per-frame 2-D Haar coefficients) for windows at host-computed
+starts: ``[B, T] f32 audio -> [B, n_rows, bands] f32``.
+
+One hand-written kernel, ``csrc/band_rows.cu``, ports three TPU kernels of
+``lbaudiodetective_tpu/ops/pallas/``:
+
+- ``fused_rows.py::fused_band_rows`` (fractional hop, rows):
+  :func:`fused_band_rows`;
+- ``fused_rows_v2.py::fused_band_rows_v2`` (integer hop, rows or with
+  ``fuse_haar`` the coefficients): :func:`fused_band_rows_v2`;
+- ``fused_rows_v2.py::fused_band_rows_v3`` with ``fuse_haar`` at the frame
+  geometries ``csrc/fused_rows.cu`` does not take: :func:`fused_band_rows_v3`.
+
+Window starts are ``FingerprintConfig.row_starts`` (a float64 floor on the
+host), sent to the device as an int32 table.  On a CUDA tensor each wrapper
+launches the kernel or raises; on a CPU tensor it runs the plain version
+(:func:`band_rows_plain`: window gather + matrix DFT band energies, + Haar
+products), which nothing on a CUDA path calls.  Each wrapper counts its own
+launches (``ops.kernels.launch_counts``).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lbaudiodetective_tpu.config import FingerprintConfig
+from lbaudiodetective_torch.ops import spectral
+from lbaudiodetective_torch.ops.constants import STAGE1, constants_to_tensors, haar_matrix, kernel_constants
+from lbaudiodetective_torch.ops.haar import haar_2d
+
+#: The one window the TPU kernels run at: 16 rows of 128 lanes.
+WINDOW = 2048
+_LANE = 128
+
+
+def band_rows_arrays(config: FingerprintConfig, haar: bool) -> dict[str, np.ndarray]:
+    """NumPy constants of the kernel: the stage matrices and the permuted
+    band projection of ``kernel_constants`` (t_re/t_im ``[16, 128, k_max]``,
+    proj_perm rows ``r * k_max + slot``), and with ``haar`` the frame's Haar
+    matrices (``h_rows`` ``[rpf, rpf]``, ``h_cols_t`` = H_bands transposed)."""
+    c16, s16, t_re, t_im, proj_perm, _ = kernel_constants(config)
+    arrays = {"c16": c16, "s16": s16, "t_re": t_re, "t_im": t_im,
+              "proj_perm": proj_perm}
+    if haar:
+        arrays["h_rows"] = haar_matrix(config.rows_per_frame)
+        arrays["h_cols_t"] = np.ascontiguousarray(haar_matrix(config.pitch_step_count).T)
+    return arrays
+
+
+@lru_cache(maxsize=32)
+def _device_constants(config: FingerprintConfig, haar: bool, device: str):
+    return constants_to_tensors(band_rows_arrays(config, haar), device)
+
+
+@lru_cache(maxsize=32)
+def _device_starts(config: FingerprintConfig, n_rows: int, device: str) -> torch.Tensor:
+    starts = config.row_starts(n_rows)
+    if starts[-1] >= 2 ** 31:
+        raise ValueError("window starts past 2^31 samples do not fit the int32 table")
+    return torch.from_numpy(starts.astype(np.int32)).to(device)
+
+
+def tile_plan(config: FingerprintConfig, n_rows: int, coeffs: bool, smem_bytes,
+              smem_limit: int) -> dict[str, int]:
+    """How the kernel cuts ``n_rows`` windows: ``sub`` windows a sub-tile
+    (the largest power of two whose audio span fits in shared memory beside
+    the other regions), ``tile_rows`` rows a CTA (a frame in coefficients
+    mode, ``sub`` in rows mode), the padded span and the shared memory in
+    bytes.  ``smem_bytes(sub, bands, span_pad, frame_floats)`` is the
+    kernel's layout (``lbad_band_rows_smem_bytes``, negative for a sub-tile
+    it does not take) and ``smem_limit`` the bytes a block may use.  Raises
+    ``ValueError`` naming the limit when one window (with the frame, in
+    coefficients mode) does not fit."""
+    if n_rows <= 0:
+        raise ValueError("n_rows must be positive")
+    rpf, bands = config.rows_per_frame, config.pitch_step_count
+    starts = config.row_starts(n_rows)
+    frame_floats = rpf * bands if coeffs else 0
+    sub = 1 << ((min(n_rows, rpf) if coeffs else n_rows).bit_length() - 1)
+    while sub >= 1:
+        first = np.arange(0, n_rows, sub)
+        last = np.minimum(first + sub, n_rows) - 1
+        span = int(np.max(starts[last] - starts[first])) + WINDOW
+        span_pad = -(-span // 4) * 4
+        smem = smem_bytes(sub, bands, span_pad, frame_floats)
+        if 0 <= smem <= smem_limit:
+            return {"sub": sub, "tile_rows": rpf if coeffs else sub,
+                    "span_pad": span_pad, "smem": smem}
+        sub //= 2
+    what = (f"one window of {WINDOW} samples and a frame of {rpf} x {bands} rows"
+            if coeffs else f"one window of {WINDOW} samples")
+    raise ValueError(f"band_rows: {what} do not fit in the {smem_limit} bytes of "
+                     "shared memory a block may use")
+
+
+@lru_cache(maxsize=64)
+def _device_plan(config: FingerprintConfig, n_rows: int, coeffs: bool,
+                 device: str) -> dict[str, int]:
+    """``tile_plan`` with the kernel's own layout and the card's limit."""
+    from lbaudiodetective_torch.ops.kernels._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        limit = lib.lbad_band_rows_smem_limit()
+    if limit < 0:
+        raise RuntimeError(f"band_rows: CUDA error {-limit} reading the shared-memory limit")
+    return tile_plan(config, n_rows, coeffs, lib.lbad_band_rows_smem_bytes, limit)
+
+
+def _check(audio: torch.Tensor, config: FingerprintConfig, n_rows: int) -> None:
+    if config.window_size != WINDOW:
+        raise ValueError(
+            f"band_rows needs window_size == {WINDOW}: the window is read as 16 rows "
+            "of 128 lanes (lbaudiodetective_tpu/ops/pallas/fused_rows.py::fused_band_rows "
+            f"fails at window {config.window_size} too)")
+    if audio.dim() != 2 or audio.dtype != torch.float32:
+        raise ValueError("band_rows takes [B, T] float32 audio")
+    if n_rows % config.rows_per_frame:
+        raise ValueError("n_rows must be a multiple of rows_per_frame")
+    kernel_constants(config)        # raises for band bins outside (0, window/2)
+
+
+def band_rows_plain(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
+                    coeffs: bool = False) -> torch.Tensor:
+    """Plain version: gather the windows at ``config.row_starts`` (zero past
+    T), two-stage matrix DFT band energies (``spectral.band_energies``) and,
+    with ``coeffs``, the per-frame 2-D Haar products."""
+    b = audio.shape[0]
+    rpf, bands = config.rows_per_frame, config.pitch_step_count
+    starts = config.row_starts(n_rows)
+    need = int(starts[-1]) + config.window_size
+    if audio.shape[1] < need:
+        audio = F.pad(audio, (0, need - audio.shape[1]))
+    rows = spectral.band_energies(
+        spectral.frame_windows(audio, starts, config.window_size), config)
+    if not coeffs:
+        return rows
+    return haar_2d(rows.reshape(b, n_rows // rpf, rpf, bands)).reshape(b, n_rows, bands)
+
+
+def _band_rows(wrapper, audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
+               coeffs: bool, consts: dict[str, torch.Tensor] | None) -> torch.Tensor:
+    """Launch ``csrc/band_rows.cu`` for ``wrapper`` (whose count it raises),
+    or run the plain version on a CPU tensor."""
+    _check(audio, config, n_rows)
+    if audio.device.type == "cpu":
+        return band_rows_plain(audio, config, n_rows, coeffs)
+    if audio.device.type != "cuda":
+        raise NotImplementedError(f"no band-rows kernel for device {audio.device}")
+    from lbaudiodetective_torch.ops.kernels._build import check, load_library
+
+    lib = load_library()
+    x = audio.contiguous()
+    if consts is None:
+        consts = _device_constants(config, coeffs, str(x.device))
+    keys = ("c16", "s16", "t_re", "t_im", "proj_perm") + (
+        ("h_rows", "h_cols_t") if coeffs else ())
+    for k in keys:
+        t = consts[k]
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"constant {k!r} must be contiguous float32 on {x.device}")
+    plan = _device_plan(config, n_rows, coeffs, str(x.device))
+    starts = _device_starts(config, n_rows, str(x.device))
+    batch, bands = x.shape[0], config.pitch_step_count
+    out = torch.empty((batch, n_rows, bands), dtype=torch.float32, device=x.device)
+    if batch == 0:
+        return out
+    k_max = consts["t_re"].shape[2]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        check(lib.lbad_band_rows(
+            x.data_ptr(), batch, x.shape[1], starts.data_ptr(), n_rows,
+            plan["tile_rows"], plan["sub"], bands, k_max, plan["span_pad"],
+            consts["c16"].data_ptr(), consts["s16"].data_ptr(),
+            consts["t_re"].data_ptr(), consts["t_im"].data_ptr(),
+            consts["proj_perm"].data_ptr(),
+            consts["h_rows"].data_ptr() if coeffs else None,
+            consts["h_cols_t"].data_ptr() if coeffs else None,
+            1.0 / config.spectrum_scale_divisor, out.data_ptr(), stream), wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def fused_band_rows(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
+                    consts: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+    """Band rows ``[B, n_rows, bands]`` at any hop: the port of
+    ``lbaudiodetective_tpu/ops/pallas/fused_rows.py::fused_band_rows``, which
+    the reference runs for a fractional hop.  ``consts`` holds
+    ``band_rows_arrays(config, False)`` on ``audio``'s device (built when
+    omitted)."""
+    return _band_rows(fused_band_rows, audio, config, n_rows, False, consts)
+
+
+def _integer_hop_geometry(config: FingerprintConfig, n_rows: int, name: str,
+                          v3: bool) -> None:
+    """The geometry checks of the reference's v2/v3 wrappers."""
+    if not config.has_integer_hop:
+        raise ValueError(f"{name} requires an integer hop")
+    hop = int(config.hop_in_processing_samples)
+    if hop <= 0 or _LANE % hop:
+        raise ValueError(f"{name} requires the hop to divide 128")
+    if config.window_size != STAGE1 * _LANE:
+        raise ValueError(f"{name} requires window_size == 2048")
+    rpf = config.rows_per_frame
+    if n_rows % rpf or rpf % (_LANE // hop) or (v3 and (rpf * hop) % _LANE):
+        raise ValueError(f"unsupported geometry for {name}")
+
+
+def fused_band_rows_v2(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
+                       consts: dict[str, torch.Tensor] | None = None,
+                       fuse_haar: bool = False) -> torch.Tensor:
+    """Port of ``lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py::
+    fused_band_rows_v2``: rows, or with ``fuse_haar`` the per-frame 2-D Haar
+    coefficients, at an integer hop that divides 128."""
+    _integer_hop_geometry(config, n_rows, "fused_band_rows_v2", v3=False)
+    return _band_rows(fused_band_rows_v2, audio, config, n_rows, fuse_haar, consts)
+
+
+def fused_band_rows_v3(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
+                       consts: dict[str, torch.Tensor] | None = None,
+                       fuse_haar: bool = False) -> torch.Tensor:
+    """Port of ``lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py::
+    fused_band_rows_v3`` (rows, or the coefficients with ``fuse_haar``) at
+    any frame geometry the reference's v3 accepts; the extraction path uses
+    it where ``csrc/fused_rows.cu`` does not take the frame."""
+    _integer_hop_geometry(config, n_rows, "fused_band_rows_v3", v3=True)
+    return _band_rows(fused_band_rows_v3, audio, config, n_rows, fuse_haar, consts)
+
+
+fused_band_rows.launches = 0
+fused_band_rows_v2.launches = 0
+fused_band_rows_v3.launches = 0

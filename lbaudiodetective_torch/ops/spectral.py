@@ -9,6 +9,7 @@ the packed DC/Nyquist slots live at bin 0 (real) and 0 (imag), and only
 from __future__ import annotations
 
 import contextlib
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -61,14 +62,24 @@ def band_energies(windows: torch.Tensor, config: FingerprintConfig) -> torch.Ten
     ranges = config.band_bin_ranges
     lo, hi = int(ranges[:, 0].min()), int(ranges[:, 1].max())
     n = windows.shape[-1]
-    proj = band_projection_matrix(config)
-    if 1 <= lo and hi <= n // 2 and n % STAGE1 == 0:
+    interior = 1 <= lo and hi <= n // 2 and n % STAGE1 == 0
+    if interior:
         re, im = rdft_bins(windows, lo, hi)
-        proj = proj[lo:hi]
     else:
         re, im = packed_spectrum(windows)
     v = _q5_energy(re, im, config.spectrum_scale_divisor)
-    return torch.matmul(v, torch.from_numpy(proj).to(windows.device))
+    return torch.matmul(v, _projection(config, interior, str(windows.device)))
+
+
+@lru_cache(maxsize=16)
+def _projection(config: FingerprintConfig, interior: bool, device: str) -> torch.Tensor:
+    """The band projection on ``device`` (rows [lo, hi) for the two-stage
+    DFT's bins), copied there once."""
+    proj = band_projection_matrix(config)
+    if interior:
+        ranges = config.band_bin_ranges
+        proj = proj[int(ranges[:, 0].min()):int(ranges[:, 1].max())]
+    return torch.from_numpy(np.ascontiguousarray(proj)).to(device)
 
 
 def window_starts(config: FingerprintConfig, n_rows: int) -> np.ndarray:

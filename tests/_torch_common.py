@@ -20,6 +20,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: Shared memory a block may opt in to on an H100 (227 KB).
+H100_SMEM_BYTES = 232448
+
+
+def band_rows_layout(sub: int, bands: int, span_pad: int, frame_floats: int) -> int:
+    """``csrc/band_rows.cu``'s shared-memory layout in bytes, restated for
+    the CPU tests of ``band_rows.tile_plan``; tests/test_torch_cuda.py holds
+    it to the kernel's own ``lbad_band_rows_smem_bytes``.  Regions: audio
+    span, stage-1 / V (2 x 128 x 33), twiddles (2 x 32 x 48), window offsets
+    (128), the frame; -1 past 128 windows or 16 x 256 (window, band) sums."""
+    if not 1 <= sub <= 128 or bands < 1 or sub * bands > 16 * 256:
+        return -1
+    return 4 * (span_pad + 2 * 128 * 33 + 2 * 32 * 48 + 128 + frame_floats)
+
+
 def brown_noise(seed: int, batch: int, n: int) -> np.ndarray:
     """Brown-spectrum noise with non-zero energy in every band."""
     rng = np.random.default_rng(seed)

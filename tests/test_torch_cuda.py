@@ -5,8 +5,9 @@ runs there on its own:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Each kernel is held to its plain version on the same tensors on the card;
-the tolerance of the rows kernel is the reference's (rtol 5e-4, atol
-3e-6 * max|coeff|: f32 summation order differs); the match kernel's is
+the tolerance of the rows kernels (fused rows, band rows) is the
+reference's (rtol 5e-4, atol 3e-6 * max|coeff|: f32 summation order
+differs); the match kernel's is
 1e-6 (both add the diagonal terms in the same order, so they agree to the
 last bit unless the compiler reorders)."""
 
@@ -19,6 +20,7 @@ from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.ops import kernels  # noqa: E402
 from lbaudiodetective_torch.ops.constants import constants_to_tensors  # noqa: E402
 from lbaudiodetective_torch.ops.extract import required_padded_length  # noqa: E402
+from lbaudiodetective_torch.ops.kernels import band_rows  # noqa: E402
 from lbaudiodetective_torch.ops.kernels.fused_rows import (  # noqa: E402
     fused_band_rows, fused_band_rows_plain, rows_arrays)
 from lbaudiodetective_torch.ops.kernels.match_packed import (  # noqa: E402
@@ -27,8 +29,8 @@ from lbaudiodetective_torch.ops.kernels.select_signs import (  # noqa: E402
     select_sign_classes, select_sign_classes_plain)
 from lbaudiodetective_torch.ops.match_packed import _mask_pairs, pack_bits_device  # noqa: E402
 from tests._torch_common import (  # noqa: E402,F401
-    bit_agreement, brown_noise, cuda_device, numpy_select, ragged_case, select_cases,
-    synth_clip)
+    H100_SMEM_BYTES, band_rows_layout, bit_agreement, brown_noise, cuda_device, numpy_select,
+    ragged_case, select_cases, synth_clip)
 
 pytestmark = pytest.mark.cuda
 CASES = select_cases()
@@ -66,6 +68,81 @@ def test_rows_kernel_matches_plain(hop, cuda_device):
     assert torch.equal(got, fused_band_rows(x, cfg, n_rows, consts, emit="coeffs"))
 
 
+BAND_ROWS_CASES = {
+    # name: (config kwargs, wrapper, fuse_haar / coefficients)
+    "rows_oracle_mode": (dict(integer_hop=False), "fused_band_rows", False),
+    "rows_rate_8000": (dict(processing_sample_rate=8000.0, integer_hop=False),
+                       "fused_band_rows", False),
+    "rows_pitch_16": (dict(pitch_step_count=16, integer_hop=False), "fused_band_rows", False),
+    "rows_rows_256": (dict(rows_per_frame=256, integer_hop=False), "fused_band_rows", False),
+    "rows_hop_512_split": (dict(hop_domain="proc", analysis_stride=512),
+                           "fused_band_rows", False),
+    "v2_rows": (dict(), "fused_band_rows_v2", False),
+    "v2_coeffs": (dict(), "fused_band_rows_v2", True),
+    "v3_pitch_16": (dict(pitch_step_count=16), "fused_band_rows_v3", True),
+    "v3_rows_256": (dict(rows_per_frame=256), "fused_band_rows_v3", True),
+    "v3_length_300": (dict(subfingerprint_length=300), "fused_band_rows_v3", True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAND_ROWS_CASES))
+def test_band_rows_kernel_matches_plain(case, cuda_device):
+    """Rows mode (kernel 5, and 4 without fuse_haar) and coefficients mode
+    (kernel 2 at other geometries, and 4 with fuse_haar) against the plain
+    version on the same tensors; hop 512 splits 128 windows into sub-tiles
+    of 64.  Two runs are bit-identical."""
+    kw, name, coeffs = BAND_ROWS_CASES[case]
+    cfg = FingerprintConfig(**kw)
+    n_rows = 4 * cfg.rows_per_frame
+    x = torch.from_numpy(brown_noise(52, 3, required_padded_length(cfg, n_rows))).to(cuda_device)
+    wrapper = getattr(band_rows, name)
+    extra = {} if name == "fused_band_rows" else {"fuse_haar": coeffs}
+    before = wrapper.launches
+    got = wrapper(x, cfg, n_rows, **extra)
+    again = wrapper(x, cfg, n_rows, **extra)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert got.shape == (3, n_rows, cfg.pitch_step_count) and torch.equal(got, again)
+    exp = band_rows.band_rows_plain(x, cfg, n_rows, coeffs).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), exp, rtol=5e-4,
+                               atol=3e-6 * float(np.abs(exp).max()))
+
+
+def test_band_rows_layout_is_the_kernels(cuda_device):
+    """The layout the CPU tests plan with is the kernel's own, and the card
+    lets a block use an H100's shared memory."""
+    from lbaudiodetective_torch.ops.kernels._build import load_library
+
+    lib = load_library()
+    for args in ((128, 32, 3072, 0), (64, 32, 34304, 0), (128, 32, 3072, 8192),
+                 (256, 16, 3072, 0), (128, 64, 3072, 0), (128, 8, 2048, 4096)):
+        assert lib.lbad_band_rows_smem_bytes(*args) == band_rows_layout(*args), args
+    assert lib.lbad_band_rows_smem_limit() == H100_SMEM_BYTES
+
+
+@pytest.mark.parametrize("kw", [dict(integer_hop=False),
+                                dict(processing_sample_rate=8000.0, integer_hop=False),
+                                dict(pitch_step_count=16), dict(subfingerprint_length=300),
+                                dict(rows_per_frame=256)])
+def test_every_config_extracts_on_cuda(kw, cuda_device):
+    """The configs that raised NotImplementedError before the band-rows
+    kernel extract on CUDA through it, >= 99.9 % of bits against the CPU."""
+    from lbaudiodetective_torch.models.detective import AudioDetective
+
+    cfg = FingerprintConfig(**kw)
+    clips = [synth_clip(74 + i, 4.0, cfg) for i in range(2)]
+    kernels.reset_launch_counts()
+    fps = AudioDetective(cfg, device=cuda_device).process_decoded_batch(clips)
+    counts = kernels.launch_counts()
+    key = ("band_rows.fused_band_rows_v3" if cfg.has_integer_hop
+           else "band_rows.fused_band_rows")
+    assert counts[key] == 1
+    refs = AudioDetective(cfg).process_decoded_batch(clips)
+    for f, r in zip(fps, refs):
+        assert f.num_subfingerprints == r.num_subfingerprints > 0
+        assert bit_agreement(f.pos, f.neg, r.pos, r.neg) >= 0.999
+
+
 def test_cuda_extraction_runs_kernels_and_equals_cpu(cuda_device):
     from lbaudiodetective_torch.models.detective import AudioDetective
 
@@ -78,7 +155,8 @@ def test_cuda_extraction_runs_kernels_and_equals_cpu(cuda_device):
     # A 4 s clip takes the fused classes mode; a single clip that fits one
     # 8-tile step takes coefficients + the standalone select.
     assert counts == {"select_sign_classes": 1, "fused_band_rows": 2,
-                      "match_one_vs_many_fused": 0}
+                      "match_one_vs_many_fused": 0, "band_rows.fused_band_rows": 0,
+                      "band_rows.fused_band_rows_v2": 0, "band_rows.fused_band_rows_v3": 0}
     refs = [cpu.process_decoded(long_clip), cpu.process_decoded(short_clip)]
     for f, r in zip(fps, refs):
         assert f.num_subfingerprints == r.num_subfingerprints
@@ -89,10 +167,21 @@ def test_cuda_extraction_runs_kernels_and_equals_cpu(cuda_device):
 
 
 def test_unported_config_raises_on_cuda(cuda_device):
+    """No config the reference runs on its accelerator is refused any more:
+    the fractional hop extracts through the band-rows kernel.  The one the
+    reference's kernel refuses (window 1024, fractional hop) raises
+    ValueError, as it does there."""
     from lbaudiodetective_torch.ops.extract import extract_fingerprint
 
     cfg = FingerprintConfig(integer_hop=False)
-    with pytest.raises(NotImplementedError, match="fused_band_rows"):
+    clip = synth_clip(73, 2.0, cfg)
+    before = band_rows.fused_band_rows.launches
+    pos, neg, n = extract_fingerprint(clip, cfg, device=cuda_device)
+    assert band_rows.fused_band_rows.launches == before + 1
+    cpos, cneg, cn = extract_fingerprint(clip, cfg)
+    assert n == cn > 0 and bit_agreement(pos, neg, cpos, cneg) >= 0.999
+    cfg = FingerprintConfig(window_size=1024, integer_hop=False)
+    with pytest.raises(ValueError, match="window_size == 2048"):
         extract_fingerprint(synth_clip(73, 2.0, cfg), cfg, device=cuda_device)
 
 

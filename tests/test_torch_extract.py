@@ -78,21 +78,98 @@ def test_short_clip_has_no_subfingerprints():
 
 
 def test_rows_implementation_per_device():
-    """CUDA takes the kernels where the reference takes its v3 kernel, and
-    raises for a config whose reference kernel has no port yet."""
+    """Each device takes the reference's rows path under the reference's
+    name: CUDA the kernels wherever the reference takes its Pallas kernels,
+    the CPU the conv and gather paths (and the fused kernel's plain version
+    at 128 x 32)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    assert rows_impl(CONFIGS["parity"], cuda) == "v3"
-    assert rows_impl(CONFIGS["proc"], cuda) == "v3"
-    assert rows_impl(CONFIGS["parity"], cpu) == "v3"
+    assert rows_impl(CONFIGS["parity"], cuda) == "fused_v3"
+    assert rows_impl(CONFIGS["proc"], cuda) == "fused_v3"
+    assert rows_impl(CONFIGS["parity"], cpu) == "fused_v3"
     assert rows_impl(CONFIGS["fractional_hop"], cpu) == "xla"
-    with pytest.raises(NotImplementedError, match="fused_rows.py::fused_band_rows"):
-        rows_impl(CONFIGS["fractional_hop"], cuda)
+    assert rows_impl(CONFIGS["fractional_hop"], cuda) == "fused"
     big_frames = FingerprintConfig(rows_per_frame=256)
     assert rows_impl(big_frames, cpu) == "conv"
-    with pytest.raises(NotImplementedError, match="fused_band_rows_v3"):
-        rows_impl(big_frames, cuda)
+    assert rows_impl(big_frames, cuda) == "fused_v3"
+    assert rows_impl(FingerprintConfig(window_size=1024), cuda) == "conv"
     low_band = FingerprintConfig(min_frequency=1.0)
     assert rows_impl(low_band, cuda) == "xla"
+    for cfg in TABLE.values():
+        assert rows_impl(cfg, cpu) in ("conv", "xla")
+
+
+#: The configs that reach the band-rows kernel on CUDA, with the rows path
+#: each takes on CUDA and on the CPU.
+TABLE = {
+    "oracle_mode": FingerprintConfig(integer_hop=False),
+    "rate_8000": FingerprintConfig(processing_sample_rate=8000.0, integer_hop=False),
+    "pitch_16": FingerprintConfig(pitch_step_count=16),
+    "length_300": FingerprintConfig(subfingerprint_length=300),
+    "rows_256": FingerprintConfig(rows_per_frame=256),
+    "window_1024": FingerprintConfig(window_size=1024, integer_hop=False),
+}
+ROUTES = {"oracle_mode": ("fused", "xla"), "rate_8000": ("fused", "xla"),
+          "pitch_16": ("fused_v3", "conv"), "length_300": ("fused_v3", "conv"),
+          "rows_256": ("fused_v3", "conv"), "window_1024": ("fused", "xla")}
+
+
+def _extract_with(clip, cfg, impl):
+    """Single-clip extraction through ``rows_impl=impl`` (the CPU runs each
+    kernel's plain version)."""
+    from lbaudiodetective_torch.ops.extract import (
+        bucket_subfingerprints, extract_fingerprint_padded, required_padded_length,
+        rows_for_subfingerprints)
+
+    n = cfg.num_subfingerprints(clip.file_frames, clip.proc_frames)
+    n_rows = rows_for_subfingerprints(cfg, bucket_subfingerprints(n))
+    x = np.zeros(required_padded_length(cfg, n_rows), np.float32)
+    t = min(len(clip.samples), len(x))
+    x[:t] = clip.samples[:t]
+    pos, neg = extract_fingerprint_padded(torch.from_numpy(x), torch.tensor(n), cfg,
+                                          n_rows, rows_impl=impl)
+    return pos.numpy()[:n], neg.numpy()[:n]
+
+
+@pytest.mark.parametrize("name", sorted(TABLE))
+def test_every_config_extracts_against_jax_and_oracle(name):
+    """Each config of the port's routing table on the CPU: the default path
+    and the CUDA route (run with the kernels' plain versions) against JAX
+    extract_fingerprint and the NumPy oracle, >= 99.9 % of bits.  Window
+    1024 with a fractional hop: the reference's kernel fails there, and so
+    does the port's CUDA route, with ValueError."""
+    from lbaudiodetective_tpu.ops.extract import extract_fingerprint as jax_extract
+    from lbaudiodetective_tpu.oracle.pipeline import oracle_fingerprint
+
+    cfg = TABLE[name]
+    cuda_route, cpu_route = ROUTES[name]
+    assert rows_impl(cfg, torch.device("cuda")) == cuda_route
+    assert rows_impl(cfg, torch.device("cpu")) == cpu_route
+    clip = synth_clip(27, 4.0, cfg)
+    pos, neg, n = extract_fingerprint(clip, cfg)
+    assert n > 0 and pos.shape == (n, cfg.num_wavelet_pairs)
+    jpos, jneg, jn = jax_extract(clip, cfg)
+    assert jn == n
+    assert bit_agreement(pos, neg, jpos[:n], jneg[:n]) >= 0.999
+    opos, oneg = oracle_fingerprint(clip, cfg)
+    assert opos.shape[0] == n
+    assert bit_agreement(pos, neg, opos, oneg) >= 0.999
+    if name == "window_1024":
+        with pytest.raises(ValueError, match="window_size == 2048"):
+            _extract_with(clip, cfg, cuda_route)
+        return
+    rpos, rneg = _extract_with(clip, cfg, cuda_route)
+    assert bit_agreement(rpos, rneg, jpos[:n], jneg[:n]) >= 0.999
+    assert bit_agreement(rpos, rneg, opos, oneg) >= 0.999
+
+
+def test_fused_v2_route_matches_default():
+    """``rows_impl="fused_v2"`` (the reference's other integer-hop kernel)
+    gives the default path's bits at the parity config."""
+    cfg = CONFIGS["parity"]
+    clip = synth_clip(26, 3.0, cfg)
+    pos, neg, n = extract_fingerprint(clip, cfg)
+    vpos, vneg = _extract_with(clip, cfg, "fused_v2")
+    assert bit_agreement(vpos, vneg, pos, neg) >= 0.999
 
 
 @pytest.mark.parametrize("cfg_kwargs", [dict(rows_per_frame=256),
