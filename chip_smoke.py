@@ -8,14 +8,23 @@ on one GPU.
 Phases (each failed check raises, and the script exits non-zero):
 
 1. Device report: ``nvidia-smi`` name and power limit, torch/CUDA/nvcc.
-2. Build the kernels from ``lbaudiodetective_torch/csrc/`` with nvcc.
-3. Select kernel vs its plain version: element-exact on six cases, timed
-   at the main-path shape [14336, 4096].
+2. Build the kernels from ``lbaudiodetective_torch/csrc/`` with nvcc and
+   print ``ptxas -v``'s registers, spills and shared memory of each kernel.
+3. Select kernel vs its plain version: element-exact on eight cases (the
+   six of the reference's tests, all zeros, 200 equal maxima), timed at the
+   main-path shape [14336, 4096] beside ``torch.topk`` on the same int64
+   keys (a yardstick the port never calls).
 4. Rows kernel vs its plain version at hop 8, 64 and 128 (batch 4):
-   coefficients within rtol 5e-4, atol 3e-6 * max|coeff|; classes
+   coefficients within rtol 5e-4, atol 3e-6 * max|coeff| of the plain
+   version evaluated in float64 (its float32 evaluation's distance printed
+   beside it); classes
    element-exact against the select kernel on the rows kernel's own
-   coefficients; two runs bit-identical; >= 99.9% of bits against the NumPy
-   oracle on two clips.
+   coefficients; two runs bit-identical; at hop 8 a NaN and a +inf sample
+   zero only the windows that hold them; >= 99.9% of bits against the NumPy
+   oracle on two clips; its time at batch 4 and at the main path's
+   [256, 7168 rows] beside its bound and the plain version's (in slices of
+   64 clips), and every clip of that shape within the bar of the plain
+   version in float64.
 5. Main path through ``AudioDetective(device="cuda")``: 256 ten-second
    clips in parity mode, a written WAV, a compare of two written WAVs, and
    one query against a 16,384-entry library (the packed match kernel).
@@ -61,8 +70,12 @@ Phases (each failed check raises, and the script exits non-zero):
    select and rows kernels' launch counts over the timed feeds and the
    streaming names (not the offline references) are > 0.
 
-The last three lines are the kernels' JSON record, the ``nvidia-smi`` name
-and power limit, and the device JSON.
+The last three lines are the kernels' JSON record (each kernel's time,
+its plain version's and, where one PyTorch call computes the same function,
+that call's, beside ``bound_ms``: the larger of its bytes over 3.35 TB/s
+and its operations over the H100's peak for their type, 67 TFLOP/s FP32,
+495 TFLOP/s TF32), the ``nvidia-smi`` name and power limit, and the device
+JSON.
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
 
@@ -85,6 +98,10 @@ BIG_S = 80                       # subfingerprint bucket of 5-15 s clips
 MATCH_TOL = 1e-6
 SELECT_SHAPE = (14336, 4096)     # 256 clips x 56 frames
 ROWS_TOL = dict(rtol=5e-4, atol_scale=3e-6)
+ROWS_SLICE = 64                  # clips a plain-version slice of phase 4's main shape
+#: H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): device memory bytes/s,
+#: FP32 FLOP/s outside the tensor cores, TF32 tensor-core FLOP/s.
+PEAK = {"bytes": 3.35e12, "fp32": 67e12, "tf32": 495e12}
 
 
 class CheckFailed(AssertionError):
@@ -95,6 +112,44 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
     print(f"  ok: {what}", flush=True)
+
+
+def bound(n_bytes: float, **flops: float) -> dict:
+    """The least time the card could take: the larger of ``n_bytes`` over
+    the memory rate and each type's operations over its peak (pipes of
+    different types overlapping)."""
+    times = {"bytes": n_bytes / PEAK["bytes"] * 1e3}
+    times.update({kind: n / PEAK[kind] * 1e3 for kind, n in flops.items()})
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations"}
+
+
+def rows_fma(cfg, n_windows: int, haar: bool) -> dict:
+    """FMA of the rows kernels for ``n_windows`` windows at ``cfg``: the
+    16-tap stage 1 (re, im) over window/16 values of b and 16 residues, the
+    complex stage 2 over k_max slots a residue (4 real FMA a term), the band
+    projection, and the frame's two Haar products."""
+    from lbaudiodetective_torch.ops.constants import kernel_constants
+
+    k_max = kernel_constants(cfg)[5]
+    b_len, bands, rpf = cfg.window_size // 16, cfg.pitch_step_count, cfg.rows_per_frame
+    out = {"stage1": n_windows * 16 * b_len * 16 * 2,
+           "stage2": n_windows * b_len * k_max * 16 * 4,
+           "projection": n_windows * 16 * k_max * bands}
+    out["haar"] = n_windows * (bands * bands + rpf * bands) if haar else 0
+    return out
+
+
+def rows_bound(cfg, audio, n_rows: int) -> tuple[dict, float, float, float]:
+    """Bound of the fused rows kernel (classes) on ``audio``: its stage 2 in
+    3xTF32 on the tensor cores, the rest FP32, the audio read once and the
+    classes written once.  Also the time if the two pipes do not overlap,
+    and the TF32 and FP32 operations."""
+    fma = rows_fma(cfg, audio.shape[0] * n_rows, haar=True)
+    tf32 = fma["stage2"] * 2 * 3
+    fp32 = (fma["stage1"] + fma["projection"] + fma["haar"]) * 2
+    b = bound(audio.numel() * 4 + audio.shape[0] * n_rows * 4, tf32=tf32, fp32=fp32)
+    return b, (tf32 / PEAK["tf32"] + fp32 / PEAK["fp32"]) * 1e3, tf32, fp32
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -124,7 +179,7 @@ def brown_noise(rng, batch: int, n: int):
 def synth_clips(rng, cfg, n: int, seconds: float):
     """Decoded clips of brown noise at the processing rate, as decode_audio_file
     would return for ``seconds``-long files at the config's file rate."""
-    from lbaudiodetective_tpu.io.decode import DecodedAudio
+    from lbaudiodetective_torch.io.decode import DecodedAudio
 
     proc = int(seconds * cfg.processing_sample_rate)
     x = brown_noise(rng, n, proc)
@@ -134,7 +189,8 @@ def synth_clips(rng, cfg, n: int, seconds: float):
 
 
 def select_cases(rng):
-    """The six cases of the reference's select tests."""
+    """The six cases of the reference's select tests, a frame set of all
+    zeros and one with 200 equal maxima (ties across the 128th key)."""
     import numpy as np
 
     tie = rng.standard_normal((64, 4096)).astype(np.float32)
@@ -149,11 +205,15 @@ def select_cases(rng):
     nan[:, 7] = np.nan
     nan[:, 11] = np.inf
     nan[:, 13] = -np.inf
+    maxima = rng.standard_normal((16, 4096)).astype(np.float32)
+    for f in maxima:
+        f[rng.choice(4096, 200, replace=False)] = np.float32(9.5) * rng.choice([-1, 1], 200)
     return {"random": rng.standard_normal((64, 4096)).astype(np.float32),
             "tie_pairs": tie, "k_boundary_ties": kb,
             "zeros_and_few_values": few.astype(np.float32),
             "padding_36_frames": rng.standard_normal((36, 4096)).astype(np.float32),
-            "nan_inf": nan}
+            "nan_inf": nan, "all_zeros": np.zeros((8, 4096), np.float32),
+            "ties_200_maxima": maxima}
 
 
 def numpy_select(x):
@@ -184,14 +244,31 @@ def phase_select(dev, rng) -> dict:
     plain = select_sign_classes_plain(x)
     err = int((got - plain).abs().max())
     check(err == 0, f"select at {list(SELECT_SHAPE)}: element-exact")
+    # The yardstick: torch.topk over the kernel's unique int64 keys
+    # (abs_bits << 32 | (4095 - idx) << 1 | pos), built outside the timing.
+    bits = x.view(torch.int32).to(torch.int64)
+    abs_bits = bits & 0x7FFFFFFF
+    pos = ((bits >= 0) & (abs_bits > 0)).to(torch.int64)
+    keys = (abs_bits << 32) | ((4095 - torch.arange(4096, device=dev)) << 1) | pos
+    top = torch.topk(keys, 128, dim=-1).values
+    top_abs = top >> 32
+    top_cls = torch.where((top_abs > 0) & (top_abs <= 0x7F800000), 2 - (top & 1), 0)
+    check(torch.equal(top_cls.to(torch.int32), got), "torch.topk on the keys gives the "
+                                                     "kernel's classes")
     ms = cuda_ms(lambda: select_sign_classes(x))
     plain_ms = cuda_ms(lambda: select_sign_classes_plain(x))
-    print(f"  select {list(SELECT_SHAPE)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-          flush=True)
+    library_ms = cuda_ms(lambda: torch.topk(keys, 128, dim=-1))
+    b = bound(x.numel() * 4 + got.numel() * 4)
+    print(f"  select {list(SELECT_SHAPE)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"torch.topk on the keys {library_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']})", flush=True)
+    check(ms <= library_ms, f"select kernel ({ms:.3f} ms) no slower than torch.topk "
+                            f"({library_ms:.3f} ms)")
     return {"name": "select_sign_classes", "route": "cuda",
             "source": "lbaudiodetective_torch/csrc/select_signs.cu",
             "replaces": "lbaudiodetective_tpu/ops/pallas/select_signs.py:164",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
 
 
 def within_rows_tol(got, exp) -> tuple[bool, float, float]:
@@ -201,9 +278,15 @@ def within_rows_tol(got, exp) -> tuple[bool, float, float]:
     return ok, float(diff.max()), scale
 
 
+def bar_share(got, exp) -> float:
+    """The largest error as a share of its element's bar (<= 1 passes)."""
+    bar = ROWS_TOL["atol_scale"] * float(exp.abs().max()) + ROWS_TOL["rtol"] * exp.abs()
+    return float(((got - exp).abs() / bar).max())
+
+
 def oracle_agreement(dev, rng, cfg, what: str) -> None:
     """Two ten-second clips extracted on the card vs the NumPy oracle."""
-    from lbaudiodetective_tpu.oracle.pipeline import oracle_fingerprint
+    from lbaudiodetective_torch.oracle.pipeline import oracle_fingerprint
     from lbaudiodetective_torch.ops.extract import extract_fingerprint_batch
 
     clips = synth_clips(rng, cfg, 2, CLIP_SECONDS)
@@ -219,7 +302,7 @@ def oracle_agreement(dev, rng, cfg, what: str) -> None:
 def phase_rows(dev, rng, batch: int = 4, n_sub: int = 56) -> dict:
     import torch
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_torch.config import FingerprintConfig
     from lbaudiodetective_torch.ops.constants import constants_to_tensors
     from lbaudiodetective_torch.ops.extract import required_padded_length
     from lbaudiodetective_torch.ops.kernels.fused_rows import (
@@ -237,10 +320,21 @@ def phase_rows(dev, rng, batch: int = 4, n_sub: int = 56) -> dict:
         audio = torch.from_numpy(brown_noise(
             rng, batch, required_padded_length(cfg, n_rows))).to(dev)
         got = fused_band_rows(audio, cfg, n_rows, consts, emit="coeffs")
-        exp = fused_band_rows_plain(audio, cfg, n_rows, consts, emit="coeffs")
-        ok, err, scale = within_rows_tol(got, exp)
-        check(ok, f"hop {hop}: coefficients within rtol 5e-4, atol 3e-6*max "
-                  f"(max abs err {err:.3e}, max|coeff| {scale:.3e})")
+        # The plain version, evaluated in float64 and in float32.  The kernel
+        # (3xTF32 stage 2 on the residue-0 remainder) is held to the float64
+        # evaluation; the float32 one carries its own rounding of the
+        # windows' large low-frequency content, shown beside it.
+        exp = fused_band_rows_plain(audio.double(), cfg, n_rows,
+                                    {k: v.double() for k, v in consts.items()}, emit="coeffs")
+        exp32 = fused_band_rows_plain(audio, cfg, n_rows, consts, emit="coeffs").double()
+        ok, err, scale = within_rows_tol(got.double(), exp)
+        _, err32, _ = within_rows_tol(got.double(), exp32)
+        _, plain_err, _ = within_rows_tol(exp32, exp)
+        check(ok, f"hop {hop}: coefficients within rtol 5e-4, atol 3e-6*max of the plain "
+                  f"version in float64 (max abs err {err:.3e}, max|coeff| {scale:.3e}, largest "
+                  f"error {bar_share(got.double(), exp):.3f} of its bar; against the float32 "
+                  f"evaluation {err32:.3e}, which is {plain_err:.3e} and "
+                  f"{bar_share(exp32, exp):.3f} of the bar from float64)")
         cls = fused_band_rows(audio, cfg, n_rows, consts, emit="classes")
         cls_a = select_sign_classes(got.reshape(-1, 4096)).reshape(cls.shape)
         check(torch.equal(cls, cls_a), f"hop {hop}: classes element-exact vs "
@@ -248,22 +342,61 @@ def phase_rows(dev, rng, batch: int = 4, n_sub: int = 56) -> dict:
         check(torch.equal(got, fused_band_rows(audio, cfg, n_rows, consts, "coeffs"))
               and torch.equal(cls, fused_band_rows(audio, cfg, n_rows, consts)),
               f"hop {hop}: two runs bit-identical")
-        if hop == 8:
-            ms = cuda_ms(lambda: fused_band_rows(audio, cfg, n_rows, consts))
-            plain_ms = cuda_ms(lambda: fused_band_rows_plain(audio, cfg, n_rows, consts),
-                               iters=5)
-            print(f"  rows+select [{batch}, {n_rows} rows]: kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms", flush=True)
-            main_audio = torch.from_numpy(brown_noise(
-                rng, N_CLIPS, required_padded_length(cfg, n_rows))).to(dev)
-            main_ms = cuda_ms(lambda: fused_band_rows(main_audio, cfg, n_rows, consts))
-            print(f"  rows+select [{N_CLIPS}, {n_rows} rows] (main path): kernel "
-                  f"{main_ms:.3f} ms", flush=True)
-            record = {"name": "fused_band_rows", "route": "cuda",
-                      "source": "lbaudiodetective_torch/csrc/fused_rows.cu",
-                      "replaces": "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:678",
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "main_shape_ms": main_ms}
+        if hop != 8:
+            continue
+        # A NaN at a tile's first sample and +inf at a clip's first sample
+        # zero only the windows that hold them, as in the plain version.
+        bad = audio.clone()
+        bad[0, 128 * hop] = float("nan")
+        bad[1, 0] = float("inf")
+        got_bad = fused_band_rows(bad, cfg, n_rows, consts, emit="coeffs")
+        ok, e, _ = within_rows_tol(got_bad.double(), fused_band_rows_plain(
+            bad.double(), cfg, n_rows, {k: v.double() for k, v in consts.items()}, "coeffs"))
+        check(ok and bool(got_bad.isfinite().all()),
+              f"hop {hop}, NaN and +inf samples: coefficients finite and within the bar of "
+              f"the plain version in float64 (max abs err {e:.3e})")
+        ms = cuda_ms(lambda: fused_band_rows(audio, cfg, n_rows, consts))
+        plain_ms = cuda_ms(lambda: fused_band_rows_plain(audio, cfg, n_rows, consts), iters=5)
+        b, _, _, _ = rows_bound(cfg, audio, n_rows)
+        print(f"  rows+select [{batch}, {n_rows} rows]: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})",
+              flush=True)
+        main_audio = torch.from_numpy(brown_noise(
+            rng, N_CLIPS, required_padded_length(cfg, n_rows))).to(dev)
+        main_ms = cuda_ms(lambda: fused_band_rows(main_audio, cfg, n_rows, consts))
+        main_plain_ms = sum(cuda_ms(lambda: fused_band_rows_plain(
+            main_audio[i:i + ROWS_SLICE], cfg, n_rows, consts), iters=2, warmup=1)
+            for i in range(0, N_CLIPS, ROWS_SLICE))
+        main_b, serial_ms, tf32, fp32 = rows_bound(cfg, main_audio, n_rows)
+        print(f"  rows+select [{N_CLIPS}, {n_rows} rows] (main path): kernel {main_ms:.3f} "
+              f"ms, plain {main_plain_ms:.3f} ms ({N_CLIPS // ROWS_SLICE} slices of "
+              f"{ROWS_SLICE}), bound {main_b['bound_ms']:.3f} ms ({main_b['bound_by']}: "
+              f"{tf32 / 1e12:.3f} TFLOP TF32, {fp32 / 1e12:.3f} TFLOP FP32; {serial_ms:.3f} ms "
+              f"if the pipes do not overlap)", flush=True)
+        # The main path's launch shape, every clip against the plain version
+        # in float64, slice by slice.
+        got = fused_band_rows(main_audio, cfg, n_rows, consts, emit="coeffs")
+        worst, share, failed = 0.0, 0.0, []
+        for i in range(0, N_CLIPS, ROWS_SLICE):
+            exp = fused_band_rows_plain(main_audio[i:i + ROWS_SLICE].double(), cfg, n_rows,
+                                        {k: v.double() for k, v in consts.items()}, "coeffs")
+            ok, e, _ = within_rows_tol(got[i:i + ROWS_SLICE].double(), exp)
+            worst, share = max(worst, e), max(share, bar_share(got[i:i + ROWS_SLICE].double(),
+                                                               exp))
+            if not ok:
+                failed.append(i)
+        check(not failed, f"coefficients at [{N_CLIPS}, {n_rows} rows]: every clip within "
+                          f"rtol 5e-4, atol 3e-6*max of its slice of the plain version in "
+                          f"float64 (max abs err {worst:.3e}, largest error {share:.3f} of its "
+                          f"bar; slices failing at clips {failed})")
+        record = {"name": "fused_band_rows", "route": "cuda",
+                  "source": "lbaudiodetective_torch/csrc/fused_rows.cu",
+                  "replaces": "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:678",
+                  "max_abs_err": max(err, worst), "ms": ms, "plain_ms": plain_ms, **b,
+                  "library_ms": None, "main_shape_ms": main_ms,
+                  "main_shape_plain_ms": main_plain_ms,
+                  "main_shape_bound_ms": main_b["bound_ms"],
+                  "main_shape_bound_serial_ms": serial_ms}
     oracle_agreement(dev, rng, FingerprintConfig(), "parity")
     return record
 
@@ -272,9 +405,9 @@ def phase_main_path(dev, rng, n_clips: int = N_CLIPS, n_library: int = N_LIBRARY
     import numpy as np
     import torch
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.io.wav import write_wav
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.io.wav import write_wav
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
     from lbaudiodetective_torch.models.detective import AudioDetective
 
     print(f"[5] main path on {dev}", flush=True)
@@ -353,7 +486,7 @@ def time_library_match(dev, library) -> dict:
     import numpy as np
     import torch
 
-    from lbaudiodetective_tpu.utils.packing import words_per_plane
+    from lbaudiodetective_torch.utils.packing import words_per_plane
     from lbaudiodetective_torch.models.library import pack_fingerprints
     from lbaudiodetective_torch.ops.extract import bucket_subfingerprints
     from lbaudiodetective_torch.ops.match import match_one_vs_many_padded
@@ -386,7 +519,7 @@ def random_words(gen, dev, n: int, s: int, pairs: int):
     import numpy as np
     import torch
 
-    from lbaudiodetective_tpu.utils.packing import words_per_plane
+    from lbaudiodetective_torch.utils.packing import words_per_plane
     from lbaudiodetective_torch.ops.kernels.match_packed import prefix_mask_words
 
     w = words_per_plane(pairs)
@@ -421,7 +554,7 @@ def plant(lib, idx: int, fp) -> None:
 def flipped(fp, rng, rate: float = 0.05):
     import numpy as np
 
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
 
     flips = rng.random(fp.pos.shape) < rate
     pos = np.where(flips, 1 - fp.pos, fp.pos).astype(np.uint8)
@@ -437,8 +570,8 @@ def build_big_library(dev, fps):
     import numpy as np
     import torch
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
     from lbaudiodetective_torch.models.library import FingerprintLibrary
 
     gen = torch.Generator(device=dev)
@@ -525,14 +658,19 @@ def phase_match_kernel(dev, lib, queries, smi: str) -> dict:
                                                      lib.neg_words, lib.counts, 100))
     coarse_ms = cuda_ms(lambda: match_one_vs_many_fused(qcpw[:4], qcnw[:4], nc[:4], lp_c,
                                                         ln_c, cnt_c, m))
-    print(f"  match 1 x 65,536 x {BIG_S} rows: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-          f"1 x {N_BIG:,}: kernel {big_ms:.3f} ms; coarse pass (4 phases x {N_BIG:,} x 20 "
-          f"rows, range 64): kernel {coarse_ms:.3f} ms ({smi})", flush=True)
+    # Bytes the scan needs: each entry's valid rows of both planes, the
+    # counts, the query and one score an entry.
+    w = lib.pos_words.shape[2]
+    b = bound(int(sub[2].sum()) * w * 2 * 4 + sub[2].numel() * 8 + int(nq.sum()) * w * 2 * 4)
+    print(f"  match 1 x 65,536 x {BIG_S} rows: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); 1 x {N_BIG:,}: kernel "
+          f"{big_ms:.3f} ms; coarse pass (4 phases x {N_BIG:,} x 20 rows, range 64): kernel "
+          f"{coarse_ms:.3f} ms ({smi})", flush=True)
     return {"name": "match_one_vs_many_fused", "route": "cuda",
             "source": "lbaudiodetective_torch/csrc/match_packed.cu",
             "replaces": "lbaudiodetective_tpu/ops/pallas/match_fused.py:138",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_1m": big_ms,
-            "coarse_ms_1m": coarse_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+            "ms_1m": big_ms, "coarse_ms_1m": coarse_ms}
 
 
 def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
@@ -543,9 +681,9 @@ def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
     import numpy as np
     import torch
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.io.wav import write_wav
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.io.wav import write_wav
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
     from lbaudiodetective_torch.__main__ import main as cli
     from lbaudiodetective_torch.models.library import FingerprintLibrary
 
@@ -660,7 +798,7 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
     geometries; kernel 4 with fuse_haar), and its times."""
     import torch
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_torch.config import FingerprintConfig
     from lbaudiodetective_torch.ops.extract import required_padded_length
     from lbaudiodetective_torch.ops.kernels import band_rows
 
@@ -700,20 +838,27 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
         plain_ms = cuda_ms(lambda: band_rows.band_rows_plain(audio, cfg, BAND_ROWS_N, coeffs),
                            iters=5)
         name = f"band_rows.{fn.__name__}"
+        fma = sum(rows_fma(cfg, batch * BAND_ROWS_N, haar=coeffs).values())
+        b = bound(audio.numel() * 4 + batch * BAND_ROWS_N * cfg.pitch_step_count * 4,
+                  fp32=2 * fma)
         print(f"  {name} [{batch}, {BAND_ROWS_N} rows] ({'coefficients' if coeffs else 'rows'}, "
               f"hop {cfg.hop_in_processing_samples:.4f}, {cfg.pitch_step_count} bands): kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']})", flush=True)
         records[name] = {"name": name, "route": "cuda",
                          "source": "lbaudiodetective_torch/csrc/band_rows.cu",
                          "replaces": replaces, "max_abs_err": err[fn.__name__],
-                         "ms": ms, "plain_ms": plain_ms}
+                         "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
     cfg = FingerprintConfig(integer_hop=False)
     main_audio = torch.from_numpy(brown_noise(
         rng, N_CLIPS, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
     main_ms = cuda_ms(lambda: band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N), iters=5)
-    records["band_rows.fused_band_rows"]["main_shape_ms"] = main_ms
+    main_bound = bound(main_audio.numel() * 4 + N_CLIPS * BAND_ROWS_N * 32 * 4,
+                       fp32=2 * sum(rows_fma(cfg, N_CLIPS * BAND_ROWS_N, haar=False).values()))
+    records["band_rows.fused_band_rows"].update(main_shape_ms=main_ms,
+                                                main_shape_bound_ms=main_bound["bound_ms"])
     print(f"  band_rows.fused_band_rows [{N_CLIPS}, {BAND_ROWS_N} rows] (fractional hop): "
-          f"kernel {main_ms:.3f} ms ({smi})", flush=True)
+          f"kernel {main_ms:.3f} ms, bound {main_bound['bound_ms']:.3f} ms ({smi})", flush=True)
     # The main path's launch shape, every clip against the plain version (in
     # slices: the plain gather holds ~60 MB of windows a clip).
     got = band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N)
@@ -739,8 +884,8 @@ def phase_every_config(dev, rng) -> dict:
     import numpy as np
     import torch
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.io.wav import write_wav
     from lbaudiodetective_torch import compat
     from lbaudiodetective_torch.models.detective import AudioDetective
     from lbaudiodetective_torch.ops.extract import (
@@ -816,7 +961,7 @@ def stream_offline(dev, cfg, audio, rows_done: int):
     """Offline extraction on the card of the samples the streams received,
     cut to the rows they have (file_frames chosen so the offline row count
     equals the stream's)."""
-    from lbaudiodetective_tpu.io.decode import DecodedAudio
+    from lbaudiodetective_torch.io.decode import DecodedAudio
     from lbaudiodetective_torch.ops.extract import extract_fingerprint_batch
 
     file_frames = rows_done * cfg.analysis_stride + cfg.window_size
@@ -834,7 +979,7 @@ def phase_streaming(dev, rng, smi: str) -> tuple[dict, collections.Counter]:
     import numpy as np
     import torch
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_torch.config import FingerprintConfig
     from lbaudiodetective_torch import compat
     from lbaudiodetective_torch.ops import kernels
     from lbaudiodetective_torch.streaming import StreamingDetective, StreamingExtractor
@@ -932,7 +1077,7 @@ def main() -> int:
     import numpy as np
 
     from lbaudiodetective_torch.ops import kernels
-    from lbaudiodetective_torch.ops.kernels._build import load_library
+    from lbaudiodetective_torch.ops.kernels._build import load_library, ptxas_report
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -947,6 +1092,9 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in ptxas_report().splitlines():
+        if line.startswith("==") or "entry function" in line or "spill" in line or "Used" in line:
+            print(f"    {line.strip()}", flush=True)
 
     rng = np.random.default_rng(0)
     records = [phase_select(dev, rng), phase_rows(dev, rng)]

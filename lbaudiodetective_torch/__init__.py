@@ -1,12 +1,14 @@
-"""LBAudioDetective on PyTorch and CUDA: the port of ``lbaudiodetective_tpu``.
+"""LBAudioDetective on PyTorch and CUDA: the port of the JAX package.
 
 The extract -> match path, the packed library, the streaming runtime and the
 C-API name layer (``compat``) run on a torch device; on CUDA the extraction
 and the library's matcher go through hand-written Hopper kernels
 (``ops.kernels``).  Decoding, resampling, the configuration,
-the Fingerprint value type and the library file format are the reference
-package's host-only modules, imported unchanged.  This package never
-imports JAX.
+the Fingerprint value type, the library file format and the NumPy oracle are
+this package's own copies of the JAX package's host-only modules
+(``config``, ``errors``, ``io``, ``models.fingerprint``, ``models.frame``,
+``utils``, ``oracle``).  This package imports neither JAX nor the JAX
+package.
 
     FingerprintConfig   -- frozen, hashable pipeline configuration
     Fingerprint         -- value type holding subfingerprint bits
@@ -23,9 +25,9 @@ Imports are lazy (PEP 562).
 __version__ = "0.1.0"
 
 _EXPORTS = {
-    "FingerprintConfig": "lbaudiodetective_tpu.config",
-    "Fingerprint": "lbaudiodetective_tpu.models.fingerprint",
-    "FingerprintBuilder": "lbaudiodetective_tpu.models.fingerprint",
+    "FingerprintConfig": "lbaudiodetective_torch.config",
+    "Fingerprint": "lbaudiodetective_torch.models.fingerprint",
+    "FingerprintBuilder": "lbaudiodetective_torch.models.fingerprint",
     "AudioDetective": "lbaudiodetective_torch.models.detective",
     "FingerprintLibrary": "lbaudiodetective_torch.models.library",
     "FingerprintExtractor": "lbaudiodetective_torch.ops.extract",

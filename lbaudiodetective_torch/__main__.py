@@ -78,7 +78,7 @@ def cmd_enroll(args) -> int:
 
 
 def _load_library(path: str, device: str):
-    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective_torch.config import FingerprintConfig
     from lbaudiodetective_torch.models.library import FingerprintLibrary
 
     # Passing the config arms the parameter-hash guard: a library enrolled

@@ -1,15 +1,15 @@
 """C-API name layer: the reference's public functions under their own names
-(port of ``lbaudiodetective_tpu/compat.py``), on this package's
+(port of the JAX package's ``compat.py``), on this package's
 :class:`AudioDetective` and :class:`StreamingDetective`.
 
 Every public name of the JAX package's module is here.  Out-parameters
 become return values; OSStatus codes become the typed exceptions of
-``lbaudiodetective_tpu.errors``.  A function that runs device code and takes
+``lbaudiodetective_torch.errors``.  A function that runs device code and takes
 no detective (``LBAudioDetectiveNew`` and
 ``LBAudioDetectiveFingerprintCompareToFingerprint``) takes a keyword-only
 ``device``, ``"cuda"`` by default as the port's CLI; it raises when CUDA is
 absent and never falls back to the CPU.  A detective carries its own device.  The container and frame
-functions are host code (NumPy), shared with the JAX package.
+functions are host code (NumPy), copies of the JAX package's.
 
     detective = LBAudioDetectiveNew()                  # on CUDA
     match = LBAudioDetectiveCompareAudioURLs(detective, url1, url2, 0)
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lbaudiodetective_tpu.config import (
+from lbaudiodetective_torch.config import (
     DEFAULT_ANALYSIS_STRIDE,
     DEFAULT_PITCH_STEP_COUNT,
     DEFAULT_PROCESSING_SAMPLE_RATE,
@@ -29,10 +29,10 @@ from lbaudiodetective_tpu.config import (
     DEFAULT_SUBFINGERPRINT_LENGTH,
     DEFAULT_WINDOW_SIZE,
 )
-from lbaudiodetective_tpu.errors import InvalidArgumentError
-from lbaudiodetective_tpu.models.fingerprint import (
+from lbaudiodetective_torch.errors import InvalidArgumentError
+from lbaudiodetective_torch.models.fingerprint import (
     Fingerprint, FingerprintBuilder, compare_subfingerprint_booleans)
-from lbaudiodetective_tpu.models.frame import Frame
+from lbaudiodetective_torch.models.frame import Frame
 from lbaudiodetective_torch.models.detective import AudioDetective
 from lbaudiodetective_torch.ops.match import match_fingerprints
 

@@ -1,5 +1,5 @@
 """AudioDetective: the end-to-end pipeline object (port of
-``lbaudiodetective_tpu/models/detective.py``).
+the JAX package's ``models/detective.py``).
 
 Decode on the host -> extract on ``device`` -> match on ``device``.  The
 device is explicit: ``AudioDetective(config, device="cuda")`` runs the
@@ -11,10 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.io.decode import DecodedAudio, decode_audio_file
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.utils.packing import words_per_plane
+from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.io.decode import DecodedAudio, decode_audio_file
+from lbaudiodetective_torch.models.fingerprint import Fingerprint
+from lbaudiodetective_torch.utils.packing import words_per_plane
 from lbaudiodetective_torch.models.library import pack_fingerprints
 from lbaudiodetective_torch.ops.extract import (
     bucket_subfingerprints, extract_fingerprint, extract_fingerprint_batch)
@@ -91,7 +91,7 @@ class AudioDetective:
 
     def process_audio_file(self, path: str) -> Fingerprint:
         if path is None:
-            from lbaudiodetective_tpu.errors import InvalidArgumentError
+            from lbaudiodetective_torch.errors import InvalidArgumentError
 
             raise InvalidArgumentError(
                 "path must not be None (kLBAudioDetectiveArgumentInvalid)")

@@ -1,5 +1,5 @@
 """FingerprintLibrary: a device-resident, packed fingerprint database (port
-of ``lbaudiodetective_tpu/models/library.py``).
+of the JAX package's ``models/library.py``).
 
 Entries live packed on one torch device (two planes of uint32 bit patterns,
 held as int32), every match runs the packed matcher
@@ -8,9 +8,9 @@ database round-trips through the reference's npz format, byte-compatible
 with the JAX package's ``FingerprintLibrary.save``/``load``.
 
 The JAX library calls ``config.warn_if_unvalidated_for_identification()``
-on every identify entry point; the port does not: that check imports JAX,
-and the port's kernels compute in full FP32 at every precision tier, as
-the reference's exempt CPU backend does.
+on every identify entry point; the port's config has no such check: its
+kernels compute at one precision whatever ``matmul_precision`` says, as the
+reference's exempt CPU backend does.
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.utils import packing, serialize
+from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.models.fingerprint import Fingerprint
+from lbaudiodetective_torch.utils import packing, serialize
 from lbaudiodetective_torch.ops.extract import bucket_subfingerprints
 from lbaudiodetective_torch.ops.match_packed import (
     entries_per_call, match_one_vs_many_packed, pack_bits_device,

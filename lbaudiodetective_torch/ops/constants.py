@@ -2,11 +2,12 @@
 conversion to device tensors.
 
 These builders are copies of the NumPy constant builders of the JAX package
-(``lbaudiodetective_tpu.ops.{haar,dft,spectral}`` and
+(the JAX package's ``ops.{haar,dft,spectral}`` and
 ``ops.pallas.{fused_rows,fused_rows_v2}``), which live in modules that import
 JAX.  They must stay bit-equal to those (``tests/test_torch_constants.py``):
-they are the "weights" of a system that has no model.  Only the config
-helpers of the reference package are imported, and those are JAX-free.
+they are the "weights" of a system that has no model.  ``tf32_split`` and
+``stage2_fragments`` have no JAX counterpart: they lay the twiddles out for
+the port's tensor-core stage 2.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lbaudiodetective_tpu.config import FingerprintConfig
+from lbaudiodetective_torch.config import FingerprintConfig
 
 #: Stage-1 DFT length: a window of n samples is read as n = a * (n / A) + b.
 STAGE1 = 16
@@ -171,6 +172,56 @@ def v2_constants(config: FingerprintConfig, fuse_haar: bool = False):
     else:
         h_cols_t = np.eye(config.pitch_step_count, dtype=np.float32)
     return c16, s16, t2a, t2b, proj_r, k_max, perm, h_cols_t
+
+
+def tf32_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``x`` (float32) as ``hi + lo``, each a TF32 value: ``hi`` is ``x``
+    rounded to 10 explicit mantissa bits (nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``), ``lo`` the rest rounded the same way.  ``hi + lo``
+    is ``x`` within 2^-22 relative."""
+    def rna(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    x = np.asarray(x, np.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+#: Stage-2 tile of ``csrc/dft_stage2.cuh``: b values a chunk, k-steps of 8
+#: b a chunk, tiles of 8 slots (48 slots).
+S2_CHUNK, S2_KSTEPS, S2_SLOT_TILES = 32, 4, 6
+
+
+def stage2_fragments(t2a: np.ndarray, k_max: int) -> np.ndarray:
+    """The stage-2 twiddles of ``t2a`` (``v2_constants``: ``t_re`` in lanes
+    [0, k_max), ``t_im`` in [64, 64 + k_max)) split into TF32 hi and lo and
+    laid out in ``mma.m16n8k8`` B-fragment order for ``csrc/dft_stage2.cuh``:
+    ``[residue, chunk, k-step, slot tile, part (re, im), lane, 4]`` float32,
+    where lane ``(g, t) = (lane >> 2, lane & 3)`` holds ``{hi(T[b]),
+    hi(T[b + 4]), lo(T[b]), lo(T[b + 4])}`` for b = 32 chunk + 8 k-step + t
+    and slot 8 tile + g; slots from k_max on are zero."""
+    n_res, b_len = t2a.shape[:2]
+    slots = 8 * S2_SLOT_TILES
+    if k_max > slots or b_len % S2_CHUNK:
+        raise ValueError(f"stage 2 takes k_max <= {slots} and b a multiple of {S2_CHUNK}")
+    t = np.zeros((2, n_res, b_len, slots), np.float32)          # (re, im)
+    t[0, :, :, :k_max] = t2a[:, :, :k_max]
+    t[1, :, :, :k_max] = t2a[:, :, 64:64 + k_max]
+    hi, lo = tf32_split(t)
+    lane = np.arange(32)
+    g, tig = lane >> 2, lane & 3
+    chunks = b_len // S2_CHUNK
+    c = np.arange(chunks)[:, None, None, None]
+    ks = np.arange(S2_KSTEPS)[None, :, None, None]
+    tile = np.arange(S2_SLOT_TILES)[None, None, :, None]
+    b = S2_CHUNK * c + 8 * ks + tig                              # [c, ks, 1, lane]
+    slot = 8 * tile + g                                          # [1, 1, tile, lane]
+    out = np.empty((n_res, chunks, S2_KSTEPS, S2_SLOT_TILES, 2, 32, 4), np.float32)
+    for part in range(2):
+        for k, (plane, dk) in enumerate(((hi, 0), (hi, 4), (lo, 0), (lo, 4))):
+            out[:, :, :, :, part, :, k] = plane[part][:, b + dk, slot]
+    return out
 
 
 @lru_cache(maxsize=8)

@@ -1,5 +1,5 @@
 """Real DFT restricted to the consumed bins, as two matrix stages (port of
-``lbaudiodetective_tpu/ops/dft.py``).
+the JAX package's ``ops/dft.py``).
 
 With n = a * B + b (A = 16, B = window / 16):
 

@@ -1,5 +1,5 @@
 """Fingerprint extraction: audio -> binary subfingerprints (port of
-``lbaudiodetective_tpu/ops/extract.py``).
+the JAX package's ``ops/extract.py``).
 
     band rows -> 128-row frames -> 2-D Haar -> |coeff| top-k in rank order
     -> sign classes -> (pos, neg) {0,1} planes [n_sub, pairs]
@@ -8,7 +8,7 @@ Clips are padded to a bucket length; the number of valid subfingerprints
 travels beside them and trailing subfingerprints are zeroed.
 
 Rows implementation, under the reference's names and as the reference picks
-it (``lbaudiodetective_tpu/ops/extract.py:96-122``, CUDA standing for its
+it (the JAX package's ``ops/extract.py:96-122``, CUDA standing for its
 accelerator):
 
 - "fused_v3": integer hop dividing 128, window 2048.  On CUDA the fused
@@ -37,8 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.io.decode import DecodedAudio
+from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.io.decode import DecodedAudio
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
     bands_in_interior, constants_to_tensors, conv_constants, haar_matrix)
@@ -168,7 +168,7 @@ class FingerprintExtractor(nn.Module):
         if fused_128x32 and not (batched.shape[0] == 1 and _single_step(n_sub)):
             # The kernel selects in place; a single clip that fits one 8-tile
             # step takes coefficients + the standalone select, as the
-            # reference does (lbaudiodetective_tpu/ops/extract.py:60-70).
+            # reference does (the JAX package's ops/extract.py:60-70).
             topcls = fused_band_rows(batched, cfg, n_rows, consts)[..., :k]
             pos = (topcls == 1).to(torch.uint8)
             neg = (topcls == 2).to(torch.uint8)

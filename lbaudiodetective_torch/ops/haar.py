@@ -1,5 +1,5 @@
 """2-D Haar wavelet transform as two matrix products (port of
-``lbaudiodetective_tpu/ops/haar.py``).
+the JAX package's ``ops/haar.py``).
 
     coeffs = H_rows @ frame @ H_cols^T
 

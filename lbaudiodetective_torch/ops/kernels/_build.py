@@ -5,7 +5,10 @@ for ``sm_90a`` (H100), one process per ``.cu`` file, all started together,
 and linked into one shared library with a plain C interface, which is
 loaded with ``ctypes``.  The build runs on first use, never at import,
 into ``build/torch_kernels/`` beside the package; the file name carries a
-hash of the sources, so an edited source is rebuilt.
+hash of the sources, so an edited source is rebuilt.  ``ptxas -v``'s report
+(registers, spills, shared memory of each kernel) is kept beside the
+library (``ptxas_report``).  A timing ablation builds and loads copies with
+extra ``-D`` macros (``load_library(flags)``), each under its own hash.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_flags: tuple[str, ...] = ()
 
 
 def _sources() -> list[pathlib.Path]:
@@ -39,17 +43,19 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(flags: tuple[str, ...] = ()) -> pathlib.Path:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
     for f in _sources():
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"liblbad_kernels_{h.hexdigest()[:12]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels unless the library for these sources exists."""
-    so = library_path()
+def build(flags: tuple[str, ...] = ()) -> pathlib.Path:
+    """Compile the kernels, with extra nvcc ``flags`` if given (the ``-D``
+    macros of a timing ablation), unless the library for these sources and
+    flags exists."""
+    so = library_path(flags)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -60,13 +66,14 @@ def build() -> pathlib.Path:
         obj = tmp.with_suffix(f".{src.stem}.o")
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    errors = []
+    errors, report = [], []
     for src, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        report.append(f"== {src.name}\n{err}")
     try:
         if errors:
             raise RuntimeError("nvcc failed: " + "\n".join(errors))
@@ -74,6 +81,7 @@ def build() -> pathlib.Path:
                                *map(str, objs)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        so.with_suffix(".ptxas.txt").write_text("".join(report))
         os.replace(tmp, so)
     finally:
         for obj in objs:
@@ -81,13 +89,23 @@ def build() -> pathlib.Path:
     return so
 
 
-def load_library() -> ctypes.CDLL:
+def ptxas_report(flags: tuple[str, ...] = ()) -> str:
+    """``ptxas -v``'s output for each source of the built library."""
+    path = build(flags).with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
+
+
+def load_library(flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
     """The kernels' shared library, built on first use, with every entry
-    point's argument and return types declared."""
-    global _lib
+    point's argument and return types declared.  ``flags`` switches every
+    wrapper, from then on, to the library built with those extra nvcc flags
+    (``()`` back to the plain build); None keeps the one loaded."""
+    global _lib, _lib_flags
     with _lock:
+        if flags is not None and tuple(flags) != _lib_flags:
+            _lib, _lib_flags = None, tuple(flags)
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(build(_lib_flags)))
             p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             lib.lbad_select_sign_classes.argtypes = [p, i, p, p]
             lib.lbad_select_sign_classes.restype = i

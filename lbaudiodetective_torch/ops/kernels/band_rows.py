@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lbaudiodetective_tpu.config import FingerprintConfig
+from lbaudiodetective_torch.config import FingerprintConfig
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import STAGE1, constants_to_tensors, haar_matrix, kernel_constants
 from lbaudiodetective_torch.ops.haar import haar_2d

@@ -12,10 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lbaudiodetective_tpu.config import FingerprintConfig
+from lbaudiodetective_torch.config import FingerprintConfig
 from lbaudiodetective_torch.ops.constants import (
     STAGE1, bands_in_interior, conv_constants, haar_matrix, kernel_constants,
-    v2_constants)
+    stage2_fragments, v2_constants)
 from lbaudiodetective_torch.ops.haar import haar_2d
 from lbaudiodetective_torch.ops.kernels.select_signs import (
     TOP, select_sign_classes_plain)
@@ -23,12 +23,12 @@ from lbaudiodetective_torch.ops.spectral import conv_band_rows
 
 _LANE = 128
 #: Constant tensors the kernel reads (its plain version reads the others).
-KERNEL_KEYS = ("c16", "s16", "t2a", "proj_r", "perm", "h_cols_t")
+KERNEL_KEYS = ("c16", "s16", "t2_frag", "proj_r", "perm", "h_cols_t")
 
 
 def reaches_v3(config: FingerprintConfig) -> bool:
     """True where the reference's accelerator path takes the v3 rows kernel
-    (``lbaudiodetective_tpu/ops/extract.py:114-120``): integer hop dividing
+    (the JAX package's ``ops/extract.py:114-120``): integer hop dividing
     128, window 2048."""
     if not (bands_in_interior(config) and config.has_integer_hop):
         return False
@@ -41,17 +41,20 @@ def reaches_v3(config: FingerprintConfig) -> bool:
 def kernel_eligible(config: FingerprintConfig) -> bool:
     """True where this kernel serves the config: the v3 path at the
     128-row x 32-band frame geometry with k <= 128
-    (``lbaudiodetective_tpu/ops/extract.py:169-171``)."""
+    (the JAX package's ``ops/extract.py:169-171``)."""
     return (reaches_v3(config) and config.rows_per_frame == 128
             and config.pitch_step_count == 32
             and config.num_wavelet_pairs <= TOP)
 
 
 def rows_arrays(config: FingerprintConfig) -> dict[str, np.ndarray]:
-    """NumPy constants of the kernel and of its plain version."""
-    c16, s16, t2a, _t2b, proj_r, _k, perm, h_cols_t = v2_constants(config, True)
+    """NumPy constants of the kernel and of its plain version; ``t2_frag``
+    holds the stage-2 twiddles split into TF32 hi and lo in the kernel's
+    fragment order (``stage2_fragments``)."""
+    c16, s16, t2a, _t2b, proj_r, k_max, perm, h_cols_t = v2_constants(config, True)
     w1, w2, proj_perm, _ = conv_constants(config)
-    return {"c16": c16, "s16": s16, "t2a": t2a, "proj_r": proj_r, "perm": perm,
+    return {"c16": c16, "s16": s16, "t2_frag": stage2_fragments(t2a, k_max),
+            "proj_r": proj_r, "perm": perm,
             "h_cols_t": h_cols_t, "conv_w1": w1, "conv_w2": w2,
             "proj_perm": proj_perm,
             "h_rows": haar_matrix(config.rows_per_frame),
@@ -122,7 +125,7 @@ def fused_band_rows(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
         check(lib.lbad_fused_rows(
             x.data_ptr(), batch, x.shape[1], n_tiles,
             int(config.hop_in_processing_samples),
-            c["c16"].data_ptr(), c["s16"].data_ptr(), c["t2a"].data_ptr(),
+            c["c16"].data_ptr(), c["s16"].data_ptr(), c["t2_frag"].data_ptr(),
             c["proj_r"].data_ptr(), k_max, c["perm"].data_ptr(),
             c["h_cols_t"].data_ptr(), 1.0 / config.spectrum_scale_divisor,
             coeffs_ptr, cls_ptr, stream), "fused_band_rows")

@@ -1,5 +1,5 @@
 """Fingerprint matching as matrix products (port of
-``lbaudiodetective_tpu/ops/match.py``).
+the JAX package's ``ops/match.py``).
 
 With sign-class planes P, N in {0,1}^pairs (never both set), the quirk-Q10
 similarity factorises into two inner products:

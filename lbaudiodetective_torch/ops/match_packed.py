@@ -1,5 +1,5 @@
 """Packed-bit (popcount) matching for library scales (port of
-``lbaudiodetective_tpu/ops/match_packed.py``).
+the JAX package's ``ops/match_packed.py``).
 
 A library entry lives as two planes of ``ceil(pairs/32)`` packed words per
 subfingerprint (16x smaller than the matmul matcher's float planes), with
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lbaudiodetective_tpu.utils.packing import words_per_plane
+from lbaudiodetective_torch.utils.packing import words_per_plane
 from lbaudiodetective_torch.ops.kernels.match_packed import (
     match_one_vs_many_fused, prefix_mask_words)
 from lbaudiodetective_torch.ops.match import _pair_mask

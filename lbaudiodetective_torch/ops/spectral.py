@@ -1,5 +1,5 @@
 """Spectral stage: windowing, vDSP-semantics real FFT and log-spaced band
-energies (port of ``lbaudiodetective_tpu/ops/spectral.py``).
+energies (port of the JAX package's ``ops/spectral.py``).
 
 vDSP semantics kept (quirk Q5): spectrum values carry fft_zrip's 2x scale,
 the packed DC/Nyquist slots live at bin 0 (real) and 0 (imag), and only
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lbaudiodetective_tpu.config import FingerprintConfig
+from lbaudiodetective_torch.config import FingerprintConfig
 from lbaudiodetective_torch.ops.constants import (
     STAGE1, band_projection_matrix, bands_in_interior, conv_constants)
 from lbaudiodetective_torch.ops.dft import rdft_bins

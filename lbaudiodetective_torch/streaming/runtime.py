@@ -1,5 +1,5 @@
 """Streaming (incremental) fingerprint extraction for B lockstep streams
-(port of ``lbaudiodetective_tpu/streaming/runtime.py``).
+(port of the JAX package's ``streaming/runtime.py``).
 
 Every stream receives a chunk of the same size per step, so the row and
 frame bookkeeping is one host computation per step (the same float64
@@ -32,8 +32,8 @@ import threading
 import numpy as np
 import torch
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.models.fingerprint import Fingerprint
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
     bands_in_interior, constants_to_tensors, conv_constants, haar_matrix)

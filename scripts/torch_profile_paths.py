@@ -1,6 +1,6 @@
 """Where the time goes in the port's 256-stream streaming paths (aligned chunk
 1024, conv chunk 512, fractional-hop gather chunk 1024, 10 s a stream) and its
-fractional-hop batch of 256 ten-second clips: walls, device busy from
+parity and fractional-hop batches of 256 ten-second clips: walls, device busy from
 torch.profiler (kernel and memcpy rows only) and host hot spots from
 cProfile.  Run from the repo root on one GPU:
 
@@ -19,7 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, ".")
-from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
+from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.models.detective import AudioDetective  # noqa: E402
 from lbaudiodetective_torch.streaming import StreamingExtractor  # noqa: E402
 import chip_smoke as cs  # noqa: E402
@@ -94,24 +94,25 @@ for name, cfg, chunk in (("aligned", FingerprintConfig(), 1024),
     sync()
     print(host_profile(run), flush=True)
 
-cfg = FingerprintConfig(integer_hop=False)
-det = AudioDetective(cfg, device=dev)
-clips = cs.synth_clips(rng, cfg, B, 10.0)
-det.process_decoded_batch(clips)
-sync()
-walls = []
-for _ in range(7):
-    t0 = time.perf_counter()
-    det.process_decoded_batch(clips)
-    walls.append(time.perf_counter() - t0)
-print(f"[fractional batch] walls {[round(w * 1e3, 3) for w in walls]} ms, median "
-      f"{np.median(walls) * 1e3:.3f} ms, {B / np.median(walls):.1f} clips/s", flush=True)
-with profile(activities=acts) as prof:
-    t0 = time.perf_counter()
+for name, cfg in (("parity batch", FingerprintConfig()),
+                  ("fractional batch", FingerprintConfig(integer_hop=False))):
+    det = AudioDetective(cfg, device=dev)
+    clips = cs.synth_clips(rng, cfg, B, 10.0)
     det.process_decoded_batch(clips)
     sync()
-    wall = time.perf_counter() - t0
-busy, lines = device_rows(prof)
-print(f"[fractional batch] profiled wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms\n{lines}",
-      flush=True)
-print(host_profile(lambda: det.process_decoded_batch(clips)), flush=True)
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        det.process_decoded_batch(clips)
+        walls.append(time.perf_counter() - t0)
+    print(f"[{name}] walls {[round(w * 1e3, 3) for w in walls]} ms, median "
+          f"{np.median(walls) * 1e3:.3f} ms, {B / np.median(walls):.1f} clips/s", flush=True)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        det.process_decoded_batch(clips)
+        sync()
+        wall = time.perf_counter() - t0
+    busy, lines = device_rows(prof)
+    print(f"[{name}] profiled wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms\n{lines}",
+          flush=True)
+    print(host_profile(lambda: det.process_decoded_batch(clips)), flush=True)

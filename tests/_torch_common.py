@@ -1,9 +1,13 @@
 """Shared helpers of the PyTorch port's tests (``tests/test_torch_*.py``).
 
 Inputs are made from a seed with numpy and handed to both the JAX package
-and the port.  Tests of a CUDA kernel take the ``cuda_device`` fixture and
-carry the ``cuda`` marker: they skip where no card is present, deciding so
-inside the fixture, never at import."""
+and the port.  Each package takes its own configs, clips and fingerprints:
+``jax_config``, ``jax_clip``, ``jax_fp`` and ``port_fp`` carry one across the
+boundary as numpy arrays and field values.  Tests of a CUDA kernel take the
+``cuda_device`` fixture and carry the ``cuda`` marker: they skip where no card
+is present, deciding so inside the fixture, never at import."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -42,14 +46,55 @@ def brown_noise(seed: int, batch: int, n: int) -> np.ndarray:
     return (np.cumsum(x, axis=1) * 0.05).astype(np.float32)
 
 
+def non_finite_audio(audio: np.ndarray, hop: int) -> np.ndarray:
+    """``audio`` (two or more clips) with NaN at the first sample of clip 0's
+    second 128-window tile and +inf at clip 1's first sample: only the
+    windows holding one lose their energies (non-finite -> 0), and the
+    coefficients stay finite."""
+    audio = audio.copy()
+    audio[0, 128 * hop] = np.nan
+    audio[1, 0] = np.inf
+    return audio
+
+
 def synth_clip(seed: int, seconds: float, config):
-    """A decoded ``seconds``-long clip, as decode_audio_file returns it."""
-    from lbaudiodetective_tpu.io.decode import DecodedAudio
+    """A decoded ``seconds``-long clip, as the port's decode_audio_file
+    returns it."""
+    from lbaudiodetective_torch.io.decode import DecodedAudio
 
     n = int(seconds * config.processing_sample_rate)
     return DecodedAudio(brown_noise(seed, 1, n)[0], config.processing_sample_rate,
                         int(seconds * config.file_sample_rate),
                         config.file_sample_rate)
+
+
+def jax_config(cfg):
+    """The JAX package's FingerprintConfig with the fields of ``cfg``."""
+    from lbaudiodetective_tpu.config import FingerprintConfig
+
+    return FingerprintConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+def jax_clip(clip):
+    """The JAX package's DecodedAudio holding the samples of ``clip``."""
+    from lbaudiodetective_tpu.io.decode import DecodedAudio
+
+    return DecodedAudio(np.asarray(clip.samples), clip.processing_rate, clip.file_frames,
+                        clip.file_rate)
+
+
+def jax_fp(fp):
+    """The JAX package's Fingerprint with the bit planes of ``fp``."""
+    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+
+    return Fingerprint(np.asarray(fp.pos), np.asarray(fp.neg), fp.subfingerprint_length)
+
+
+def port_fp(fp):
+    """The port's Fingerprint with the bit planes of ``fp``."""
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
+
+    return Fingerprint(np.asarray(fp.pos), np.asarray(fp.neg), fp.subfingerprint_length)
 
 
 def bit_agreement(pos_a, neg_a, pos_b, neg_b) -> float:

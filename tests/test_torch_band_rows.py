@@ -12,11 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
+from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.ops import constants as port  # noqa: E402
 from lbaudiodetective_torch.ops.extract import required_padded_length  # noqa: E402
 from lbaudiodetective_torch.ops.kernels import band_rows  # noqa: E402
-from tests._torch_common import H100_SMEM_BYTES, band_rows_layout, brown_noise  # noqa: E402
+from tests._torch_common import (  # noqa: E402
+    H100_SMEM_BYTES, band_rows_layout, brown_noise, jax_config)
 
 FRACTIONAL = {
     "oracle_mode": dict(integer_hop=False),
@@ -47,7 +48,7 @@ def test_rows_match_jax_fused_band_rows(name):
     assert not cfg.has_integer_hop
     got = band_rows.fused_band_rows(torch.from_numpy(audio), cfg, n_rows)
     assert got.shape == (2, n_rows, cfg.pitch_step_count) and got.dtype == torch.float32
-    exp = np.asarray(jax_rows(jnp.asarray(audio), cfg, n_rows, interpret=True))
+    exp = np.asarray(jax_rows(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True))
     _assert_close(got.numpy(), exp)
 
 
@@ -61,7 +62,7 @@ def test_v2_matches_jax_at_hop_8(fuse_haar):
     assert cfg.hop_in_processing_samples == 8
     got = band_rows.fused_band_rows_v2(torch.from_numpy(audio), cfg, n_rows,
                                        fuse_haar=fuse_haar)
-    exp = np.asarray(jax_v2(jnp.asarray(audio), cfg, n_rows, interpret=True,
+    exp = np.asarray(jax_v2(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True,
                             fuse_haar=fuse_haar))
     _assert_close(got.numpy(), exp)
 
@@ -75,7 +76,7 @@ def test_v3_coefficients_match_jax_at_other_geometries(name):
     cfg, n_rows, audio = _inputs(GEOMETRIES[name], 63)
     got = band_rows.fused_band_rows_v3(torch.from_numpy(audio), cfg, n_rows,
                                        fuse_haar=True)
-    exp = np.asarray(jax_v3(jnp.asarray(audio), cfg, n_rows, interpret=True,
+    exp = np.asarray(jax_v3(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True,
                             fuse_haar=True))
     _assert_close(got.numpy(), exp)
 
@@ -103,7 +104,7 @@ def test_constants_equal_the_jax_arrays():
 
     for kw in (*FRACTIONAL.values(), *GEOMETRIES.values(), {}):
         cfg = FingerprintConfig(**kw)
-        c16, s16, t_re, t_im, proj_perm, _ = _kernel_constants(cfg)
+        c16, s16, t_re, t_im, proj_perm, _ = _kernel_constants(jax_config(cfg))
         expected = {"c16": c16, "s16": s16, "t_re": t_re, "t_im": t_im,
                     "proj_perm": proj_perm, "h_rows": haar.haar_matrix(cfg.rows_per_frame),
                     "h_cols_t": haar.haar_matrix(cfg.pitch_step_count).T}

@@ -18,10 +18,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from lbaudiodetective_tpu import compat as jax_compat  # noqa: E402
-from lbaudiodetective_tpu.io.wav import write_wav  # noqa: E402
 from lbaudiodetective_torch import compat  # noqa: E402
+from lbaudiodetective_torch.io.wav import write_wav  # noqa: E402
 from lbaudiodetective_torch.streaming import StreamingDetective  # noqa: E402
-from tests._torch_common import bit_agreement, brown_noise  # noqa: E402
+from tests._torch_common import bit_agreement, brown_noise, jax_fp, port_fp  # noqa: E402
 
 PUBLIC = re.compile(r"^(LBAudioDetective|kLBAudioDetective|stringFromFingerprint)")
 SETTERS = {"default": (), "pitch_16": (("SetNumberOfPitchSteps", 16),),
@@ -63,7 +63,7 @@ def test_device_is_explicit_and_cuda_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             compat.LBAudioDetectiveNew()
-        fp = jax_compat.LBAudioDetectiveFingerprintNew(2)
+        fp = compat.LBAudioDetectiveFingerprintNew(2)
         with pytest.raises(RuntimeError, match="CUDA"):
             compat.LBAudioDetectiveFingerprintCompareToFingerprint(fp, fp, 2)
 
@@ -101,17 +101,19 @@ def test_process_and_compare_urls_match_jax(case, tmp_path):
     jscore = jax_compat.LBAudioDetectiveCompareAudioURLs(ref, a, b)
     jfb = jax_compat.LBAudioDetectiveGetFingerprint(ref)
     assert bit_agreement(fb.pos, fb.neg, jfb.pos, jfb.neg) >= 0.999
-    # Range 0 compares whole subfingerprints; on the same fingerprints the
-    # JAX package's matcher gives the same score.
+    # Range 0 compares whole subfingerprints; on the same fingerprints
+    # (carried over as numpy planes) the JAX package's matcher gives the same
+    # score.
+    jax_a, jax_b = jax_fp(fp), jax_fp(fb)
     same = jax_compat.LBAudioDetectiveFingerprintCompareToFingerprint(
-        fp, fb, fp.subfingerprint_length)
+        jax_a, jax_b, fp.subfingerprint_length)
     assert 0.0 < score <= 1.0 and abs(score - same) <= 1e-6
-    if fp == jfp and fb == jfb:
+    if fp == port_fp(jfp) and fb == port_fp(jfb):
         assert abs(score - jscore) <= 1e-6
     # The raw compare on the same fingerprints (range 0 compares nothing).
     for rng in (0, 100, 37):
         got = compat.LBAudioDetectiveFingerprintCompareToFingerprint(fp, fb, rng, device="cpu")
-        exp = jax_compat.LBAudioDetectiveFingerprintCompareToFingerprint(fp, fb, rng)
+        exp = jax_compat.LBAudioDetectiveFingerprintCompareToFingerprint(jax_a, jax_b, rng)
         assert abs(got - exp) <= 1e-6
     with pytest.raises(Exception):
         compat.LBAudioDetectiveProcessAudioURL(port, None)
@@ -198,20 +200,31 @@ def test_streaming_names_drive_the_port():
 
 def test_compat_and_streaming_import_no_jax():
     """The C-API layer and the streaming runtime run without JAX (the card's
-    host has none): a fresh interpreter drives both and finds no jax module."""
+    host has none): a fresh interpreter drives both, with a frame, a
+    fingerprint container and a written WAV through the native decoder, and
+    finds neither JAX nor the JAX package in ``sys.modules``."""
     repo = pathlib.Path(__file__).resolve().parents[1]
     script = (
-        "import sys, numpy as np\n"
+        "import sys, tempfile, numpy as np\n"
         "from lbaudiodetective_torch import compat, StreamingExtractor, FingerprintConfig\n"
+        "from lbaudiodetective_torch.io.wav import write_wav\n"
         "f = compat.LBAudioDetectiveFrameNew(2)\n"
         "compat.LBAudioDetectiveFrameSetRow(f, np.ones(4, np.float32), 0, 4)\n"
+        "c = compat.LBAudioDetectiveFingerprintNew(4)\n"
+        "compat.LBAudioDetectiveFingerprintAddSubfingerprint(c, np.ones(4, np.uint8))\n"
         "d = compat.LBAudioDetectiveNew(device='cpu')\n"
         "compat.LBAudioDetectiveSetNumberOfPitchSteps(d, 16)\n"
         "ext = StreamingExtractor(2, 1024, FingerprintConfig(integer_hop=False))\n"
         "x = np.cumsum(np.random.default_rng(0).standard_normal((2, 4096)), 1) * 0.005\n"
         "[ext.feed(x[:, i:i + 1024].astype(np.float32)) for i in range(0, 4096, 1024)]\n"
         "assert ext.fingerprints()[0].num_subfingerprints == 2\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "path = tempfile.mkdtemp() + '/a.wav'\n"
+        "y = np.cumsum(np.random.default_rng(1).standard_normal(3 * 44100)) * 0.001\n"
+        "write_wav(path, (0.5 * y / np.abs(y).max()).astype(np.float32), 44100)\n"
+        "assert compat.LBAudioDetectiveProcessAudioURL(d, path).num_subfingerprints > 0\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'lbaudiodetective_tpu'))\n"
+        "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [

@@ -4,10 +4,11 @@ runs there on its own:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Each kernel is held to its plain version on the same tensors on the card;
-the tolerance of the rows kernels (fused rows, band rows) is the
-reference's (rtol 5e-4, atol 3e-6 * max|coeff|: f32 summation order
-differs); the match kernel's is
+Each kernel is held to its plain version on the same tensors on the card
+(the fused rows kernel to the plain version evaluated in float64); the
+tolerance of the rows kernels (fused rows, band rows) is the reference's
+(rtol 5e-4, atol 3e-6 * max|coeff|: f32 summation order differs); the
+match kernel's is
 1e-6 (both add the diagonal terms in the same order, so they agree to the
 last bit unless the compiler reorders)."""
 
@@ -16,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
+from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.ops import kernels  # noqa: E402
 from lbaudiodetective_torch.ops.constants import constants_to_tensors  # noqa: E402
 from lbaudiodetective_torch.ops.extract import required_padded_length  # noqa: E402
@@ -29,12 +30,25 @@ from lbaudiodetective_torch.ops.kernels.select_signs import (  # noqa: E402
     select_sign_classes, select_sign_classes_plain)
 from lbaudiodetective_torch.ops.match_packed import _mask_pairs, pack_bits_device  # noqa: E402
 from tests._torch_common import (  # noqa: E402,F401
-    H100_SMEM_BYTES, band_rows_layout, bit_agreement, brown_noise, cuda_device, numpy_select,
-    ragged_case, select_cases, synth_clip)
+    H100_SMEM_BYTES, band_rows_layout, bit_agreement, brown_noise, cuda_device,
+    non_finite_audio, numpy_select, ragged_case, select_cases, synth_clip)
 
 pytestmark = pytest.mark.cuda
-CASES = select_cases()
-HOPS = {8: dict(), 64: dict(hop_domain="proc"),
+
+
+def _threshold_cases() -> dict[str, np.ndarray]:
+    """Frames that probe the select's threshold: all zeros (every key ties
+    at abs bits 0), and 200 equal maxima (the 128th key ties with 72 more
+    across the boundary) among smaller values of both signs."""
+    rng = np.random.default_rng(9)
+    ties = rng.standard_normal((16, 4096)).astype(np.float32)
+    for f in ties:
+        f[rng.choice(4096, 200, replace=False)] = np.float32(9.5) * rng.choice([-1, 1], 200)
+    return {"all_zeros": np.zeros((8, 4096), np.float32), "ties_200_maxima": ties}
+
+
+CASES = {**select_cases(), **_threshold_cases()}
+HOPS = {4: dict(hop_domain="proc", analysis_stride=4), 8: dict(), 64: dict(hop_domain="proc"),
         128: dict(hop_domain="proc", analysis_stride=128)}
 
 
@@ -61,11 +75,38 @@ def test_rows_kernel_matches_plain(hop, cuda_device):
     cls = fused_band_rows(x, cfg, n_rows, consts)
     torch.cuda.synchronize()
     assert fused_band_rows.launches == before + 2
-    exp = fused_band_rows_plain(x, cfg, n_rows, consts, emit="coeffs").cpu().numpy()
+    # Held to the plain version evaluated in float64: the kernel's stage 2
+    # (3xTF32 on the residue-0 remainder) is closer to it than the plain
+    # version's own float32 evaluation.
+    exp = fused_band_rows_plain(x.double(), cfg, n_rows,
+                                {k: v.double() for k, v in consts.items()},
+                                emit="coeffs").cpu().numpy()
     np.testing.assert_allclose(got.cpu().numpy(), exp, rtol=5e-4,
                                atol=3e-6 * float(np.abs(exp).max()))
     assert torch.equal(cls, select_sign_classes(got.reshape(-1, 4096)).reshape(cls.shape))
     assert torch.equal(got, fused_band_rows(x, cfg, n_rows, consts, emit="coeffs"))
+    assert torch.equal(cls, fused_band_rows(x, cfg, n_rows, consts))
+
+
+@pytest.mark.parametrize("hop", sorted(HOPS))
+def test_rows_kernel_with_non_finite_samples_matches_plain(hop, cuda_device):
+    """NaN at a tile's first sample and +inf at a clip's first sample zero
+    only the windows that hold them, as in the plain version (which
+    tests/test_torch_rows.py holds to the JAX package on such input)."""
+    cfg = FingerprintConfig(**HOPS[hop])
+    n_rows = 1024
+    audio = non_finite_audio(brown_noise(53, 2, required_padded_length(cfg, n_rows)), hop)
+    consts = constants_to_tensors(rows_arrays(cfg), cuda_device)
+    x = torch.from_numpy(audio).to(cuda_device)
+    got = fused_band_rows(x, cfg, n_rows, consts, emit="coeffs")
+    cls = fused_band_rows(x, cfg, n_rows, consts)
+    exp = fused_band_rows_plain(x.double(), cfg, n_rows,
+                                {k: v.double() for k, v in consts.items()},
+                                emit="coeffs").cpu().numpy()
+    assert np.isfinite(got.cpu().numpy()).all()
+    np.testing.assert_allclose(got.cpu().numpy(), exp, rtol=5e-4,
+                               atol=3e-6 * float(np.abs(exp).max()))
+    assert torch.equal(cls, select_sign_classes(got.reshape(-1, 4096)).reshape(cls.shape))
 
 
 BAND_ROWS_CASES = {
@@ -250,7 +291,7 @@ def test_match_kernel_refuses_too_long_entries(cuda_device):
 
 
 def test_cuda_library_search_equals_match_and_cpu(cuda_device):
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
     from lbaudiodetective_torch.models.library import FingerprintLibrary
 
     _, _, _, lib_pos, lib_neg, n_lib = ragged_case(32, 100, l=600, nq=40)

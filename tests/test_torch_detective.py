@@ -11,9 +11,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from lbaudiodetective_tpu.io.wav import write_wav  # noqa: E402
+from lbaudiodetective_torch.io.wav import write_wav  # noqa: E402
 from lbaudiodetective_torch.models.detective import AudioDetective  # noqa: E402
-from tests._torch_common import bit_agreement, brown_noise  # noqa: E402
+from tests._torch_common import bit_agreement, brown_noise, jax_fp, port_fp  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -43,23 +43,25 @@ def test_detective_matches_jax_detective(wavs):
         assert bit_agreement(f.pos, f.neg, j.pos, j.neg) >= 0.999
     assert det.last_fingerprint == fps["b"]
 
-    # Scores: the port's matcher on the JAX fingerprints equals JAX's within
-    # 1e-6; the end-to-end compare does too where the fingerprints are equal.
+    # Scores: the port's matcher on the JAX fingerprints (carried over as
+    # numpy planes) equals JAX's within 1e-6; the end-to-end compare does too
+    # where the fingerprints are equal.
+    carried = {name: port_fp(j) for name, j in jfps.items()}
     for p1, p2 in (("a", "a_noisy"), ("a", "b")):
         jscore = jdet.compare_fingerprints(jfps[p1], jfps[p2])
-        assert abs(det.compare_fingerprints(jfps[p1], jfps[p2]) - jscore) <= 1e-6
+        assert abs(det.compare_fingerprints(carried[p1], carried[p2]) - jscore) <= 1e-6
         score = det.compare_audio_files(wavs[p1], wavs[p2])
-        if fps[p1] == jfps[p1] and fps[p2] == jfps[p2]:
+        if fps[p1] == carried[p1] and fps[p2] == carried[p2]:
             assert abs(score - jscore) <= 1e-6
     assert det.compare_audio_files(wavs["a"], wavs["a_noisy"]) > \
         det.compare_audio_files(wavs["a"], wavs["b"])
 
-    library = [jfps["b"], jfps["a_noisy"], jfps["a"]]
-    got = det.match_against_library(jfps["a"], library)
-    exp = jdet.match_against_library(jfps["a"], library)
+    names = ("b", "a_noisy", "a")
+    got = det.match_against_library(carried["a"], [carried[n] for n in names])
+    exp = jdet.match_against_library(jfps["a"], [jfps[n] for n in names])
     np.testing.assert_allclose(got, exp, rtol=0, atol=1e-6)
     assert int(np.argmax(got)) == 2
-    assert det.match_against_library(jfps["a"], []).shape == (0,)
+    assert det.match_against_library(carried["a"], []).shape == (0,)
 
     batch = det.process_batch([wavs["a"], wavs["b"]])
     assert batch[0] == fps["a"] and batch[1] == fps["b"]
@@ -72,7 +74,7 @@ def test_match_against_library_equals_jax_on_ragged_entries(comparison_range):
     the query, equal to it, longer.  Tolerance 1e-6 (f32 sums, added in
     the same order)."""
     from lbaudiodetective_tpu.models.detective import AudioDetective as JaxDetective
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
     from tests._torch_common import ragged_case
 
     q_pos, q_neg, nq, lib_pos, lib_neg, n_lib = ragged_case(41, 100, l=40)
@@ -80,7 +82,8 @@ def test_match_against_library_equals_jax_on_ragged_entries(comparison_range):
     library = [Fingerprint(p[:n], q[:n]) for p, q, n in zip(lib_pos, lib_neg, n_lib)]
     got = AudioDetective(device="cpu").match_against_library(query, library,
                                                              comparison_range)
-    exp = JaxDetective().match_against_library(query, library, comparison_range)
+    exp = JaxDetective().match_against_library(jax_fp(query), [jax_fp(f) for f in library],
+                                               comparison_range)
     assert got.shape == (40,) and got.dtype == np.float32 and got[0] == 0.0
     np.testing.assert_allclose(got, exp, rtol=0, atol=1e-6)
 
@@ -95,33 +98,45 @@ def test_detective_preferences_replace_config():
         det.window_size = 2000
 
 
+#: Imported in a fresh interpreter: every module of the port, then a CPU
+#: extraction, a library match, the CLI's ``fingerprint`` on a written WAV and
+#: the native decoder; neither JAX nor the JAX package may have been loaded.
+NO_JAX_SCRIPT = """
+import importlib, pkgutil, sys, numpy as np
+import lbaudiodetective_torch
+for m in pkgutil.walk_packages(lbaudiodetective_torch.__path__, "lbaudiodetective_torch."):
+    importlib.import_module(m.name)
+from lbaudiodetective_torch import AudioDetective, FingerprintConfig
+from lbaudiodetective_torch.io.decode import DecodedAudio
+from lbaudiodetective_torch.io.wav import write_wav
+cfg = FingerprintConfig()
+x = np.cumsum(np.random.default_rng(0).standard_normal(11024)).astype(np.float32)
+clip = DecodedAudio(x * 0.005, 5512.0, 88200, 44100.0)
+det = AudioDetective(cfg, device='cpu')
+fp = det.process_decoded(clip)
+assert fp.num_subfingerprints > 0
+assert det.compare_fingerprints(fp, fp) == 1.0
+import lbaudiodetective_torch.__main__ as cli
+from lbaudiodetective_torch.models.library import FingerprintLibrary
+assert lbaudiodetective_torch.FingerprintLibrary is FingerprintLibrary
+lib = FingerprintLibrary.from_fingerprints([fp, fp], cfg)
+assert lib.identify(fp) == (0, 1.0)
+assert lib.search(fp, top_k=1, shortlist=1)[1][0] == 1.0
+cli.build_parser().parse_args(['identify', 'x.wav', '--library', 'l.npz'])
+y = np.cumsum(np.random.default_rng(1).standard_normal(3 * 44100)) * 0.001
+write_wav('clip.wav', (0.5 * y / np.abs(y).max()).astype(np.float32), 44100)
+assert cli.main(['fingerprint', 'clip.wav', '--device', 'cpu']) == 0
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lbaudiodetective_tpu'))
+assert not bad, bad
+print('NO_JAX_OK')
+"""
+
+
 def test_port_imports_no_jax(tmp_path):
-    script = (
-        "import sys, numpy as np\n"
-        "import lbaudiodetective_torch\n"
-        "from lbaudiodetective_torch import AudioDetective, FingerprintConfig\n"
-        "from lbaudiodetective_tpu.io.decode import DecodedAudio\n"
-        "cfg = FingerprintConfig()\n"
-        "x = np.cumsum(np.random.default_rng(0).standard_normal(11024)).astype(np.float32)\n"
-        "clip = DecodedAudio(x * 0.005, 5512.0, 88200, 44100.0)\n"
-        "det = AudioDetective(cfg, device='cpu')\n"
-        "fp = det.process_decoded(clip)\n"
-        "assert fp.num_subfingerprints > 0\n"
-        "assert det.compare_fingerprints(fp, fp) == 1.0\n"
-        "import lbaudiodetective_torch.__main__ as cli\n"
-        "from lbaudiodetective_torch.ops import match_packed\n"
-        "from lbaudiodetective_torch.models.library import FingerprintLibrary\n"
-        "assert lbaudiodetective_torch.FingerprintLibrary is FingerprintLibrary\n"
-        "lib = FingerprintLibrary.from_fingerprints([fp, fp], cfg)\n"
-        "assert lib.identify(fp) == (0, 1.0)\n"
-        "assert lib.search(fp, top_k=1, shortlist=1)[1][0] == 1.0\n"
-        "cli.build_parser().parse_args(['identify', 'x.wav', '--library', 'l.npz'])\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
-        "print('NO_JAX_OK')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
         p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path), env=env,
+    proc = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT], cwd=str(tmp_path), env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "NO_JAX_OK" in proc.stdout, proc.stderr[-3000:]
 

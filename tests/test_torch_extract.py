@@ -8,12 +8,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
-from lbaudiodetective_tpu.io.decode import DecodedAudio  # noqa: E402
+from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
+from lbaudiodetective_torch.io.decode import DecodedAudio  # noqa: E402
 from lbaudiodetective_torch.ops.extract import (  # noqa: E402
     extract_fingerprint, extract_fingerprint_batch, rows_impl)
 from lbaudiodetective_torch.ops.match import match_fingerprints  # noqa: E402
-from tests._torch_common import bit_agreement, synth_clip  # noqa: E402
+from tests._torch_common import bit_agreement, jax_clip, jax_config, synth_clip  # noqa: E402
 
 CONFIGS = {
     "parity": FingerprintConfig(),
@@ -33,10 +33,10 @@ def test_extract_matches_jax_and_oracle(cfg_name, seconds):
     pos, neg, n = extract_fingerprint(clip, cfg)
     assert n > 0 and pos.shape == (n, 100) and pos.dtype == np.uint8
     assert not (pos & neg).any()
-    jpos, jneg, jn = jax_extract(clip, cfg)
+    jpos, jneg, jn = jax_extract(jax_clip(clip), jax_config(cfg))
     assert jn == n
     assert bit_agreement(pos, neg, jpos[:n], jneg[:n]) >= 0.999
-    opos, oneg = oracle_fingerprint(clip, cfg)
+    opos, oneg = oracle_fingerprint(jax_clip(clip), jax_config(cfg))
     assert opos.shape[0] == n
     assert bit_agreement(pos, neg, opos, oneg) >= 0.999
 
@@ -147,10 +147,10 @@ def test_every_config_extracts_against_jax_and_oracle(name):
     clip = synth_clip(27, 4.0, cfg)
     pos, neg, n = extract_fingerprint(clip, cfg)
     assert n > 0 and pos.shape == (n, cfg.num_wavelet_pairs)
-    jpos, jneg, jn = jax_extract(clip, cfg)
+    jpos, jneg, jn = jax_extract(jax_clip(clip), jax_config(cfg))
     assert jn == n
     assert bit_agreement(pos, neg, jpos[:n], jneg[:n]) >= 0.999
-    opos, oneg = oracle_fingerprint(clip, cfg)
+    opos, oneg = oracle_fingerprint(jax_clip(clip), jax_config(cfg))
     assert opos.shape[0] == n
     assert bit_agreement(pos, neg, opos, oneg) >= 0.999
     if name == "window_1024":
@@ -182,6 +182,6 @@ def test_other_rows_paths_match_jax(cfg_kwargs):
     cfg = FingerprintConfig(**cfg_kwargs)
     clip = synth_clip(23, 4.0, cfg)
     pos, neg, n = extract_fingerprint(clip, cfg)
-    jpos, jneg, jn = jax_extract(clip, cfg)
+    jpos, jneg, jn = jax_extract(jax_clip(clip), jax_config(cfg))
     assert n == jn > 0
     assert bit_agreement(pos, neg, jpos[:n], jneg[:n]) >= 0.999

@@ -2,20 +2,21 @@
 fingerprints of the bird corpus (``tests/_cache/jaxfp_*``, read only) and
 seeded synthetic ones.
 
-Tolerances: match scores within 1e-6 (f32 sums; in practice they are
-equal), search indices equal and scores within 1e-7; npz files and arrays
-identical in both directions."""
+Each package gets its own configs and fingerprints, carried across as
+numpy planes (``jax_fp``, ``jax_config``).  Tolerances: match scores within
+1e-6 (f32 sums; in practice they are equal), search indices equal and scores
+within 1e-7; npz files and arrays identical in both directions."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint, FingerprintBuilder  # noqa: E402
 from lbaudiodetective_tpu.models.library import FingerprintLibrary as JaxLibrary  # noqa: E402
+from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
+from lbaudiodetective_torch.models.fingerprint import Fingerprint, FingerprintBuilder  # noqa: E402
 from lbaudiodetective_torch.models.library import FingerprintLibrary  # noqa: E402
-from tests._torch_common import synthetic_library  # noqa: E402
+from tests._torch_common import jax_config, jax_fp, synthetic_library  # noqa: E402
 from tests.conftest import BIRDS, CACHE  # noqa: E402
 
 FIXTURE_KEY = "46bdaf65-4920ed19"
@@ -27,6 +28,23 @@ HALF = dict(shortlist=256, coarse_range=64, coarse_stride=4)
 def committed_fp(name: str) -> Fingerprint:
     z = np.load(CACHE / f"jaxfp_{FIXTURE_KEY}_{name}.npz")
     return Fingerprint(z["pos"], z["neg"])
+
+
+def jax_library(fps, cfg=None):
+    """The JAX package's library of the same entries."""
+    return JaxLibrary.from_fingerprints([jax_fp(f) for f in fps],
+                                        jax_config(cfg or FingerprintConfig()))
+
+
+def make_library(cls, fps, cfg=None):
+    """A library of ``cls`` (the port's or the JAX package's) of ``fps``."""
+    if cls is JaxLibrary:
+        return jax_library(fps, cfg)
+    return FingerprintLibrary.from_fingerprints(fps, cfg or FingerprintConfig())
+
+
+def query_for(cls, fp):
+    return jax_fp(fp) if cls is JaxLibrary else fp
 
 
 def random_fp(rng, n, pairs=100):
@@ -58,10 +76,8 @@ def planted():
         pos = np.where(flips, 1 - birds[t].pos, birds[t].pos).astype(np.uint8)
         queries.append((f"{BIRDS[t]}_flip5", t,
                         Fingerprint(pos, (birds[t].neg * (1 - pos)).astype(np.uint8))))
-    cfg = FingerprintConfig()
-    lib = FingerprintLibrary.from_fingerprints(fps, cfg)
-    return (lib, JaxLibrary.from_fingerprints(fps, cfg), queries,
-            lib.match_many([q for _, _, q in queries]))
+    lib = FingerprintLibrary.from_fingerprints(fps, FingerprintConfig())
+    return (lib, jax_library(fps), queries, lib.match_many([q for _, _, q in queries]))
 
 
 def test_state_equals_jax_library(planted):
@@ -73,7 +89,7 @@ def test_state_equals_jax_library(planted):
     np.testing.assert_array_equal(lib.counts.numpy(), np.asarray(jlib.counts))
     carried = FingerprintLibrary.from_arrays(
         np.asarray(jlib.pos_words), np.asarray(jlib.neg_words), np.asarray(jlib.counts),
-        jlib.pairs, jlib.config)
+        jlib.pairs, FingerprintConfig())
     assert torch.equal(carried.pos_words, lib.pos_words) and len(carried) == 512
     assert lib.device == torch.device("cpu")
 
@@ -82,11 +98,12 @@ def test_match_and_match_many_equal_jax(planted):
     lib, jlib, queries, got = planted
     qs = [q for _, _, q in queries]
     assert got.shape == (len(qs), 512)
-    np.testing.assert_allclose(got, np.asarray(jlib.match_many(qs)), rtol=0, atol=1e-6)
+    jqs = [jax_fp(q) for q in qs]
+    np.testing.assert_allclose(got, np.asarray(jlib.match_many(jqs)), rtol=0, atol=1e-6)
     for i in (0, 12, 31):
         single = lib.match(qs[i], chunk=200)         # chunks do not change a score
         np.testing.assert_array_equal(single, got[i])
-        np.testing.assert_allclose(single, jlib.match(qs[i]), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(single, jlib.match(jqs[i]), rtol=0, atol=1e-6)
         assert lib.identify(qs[i]) == (int(np.argmax(got[i])), float(got[i].max()))
     assert lib.match_many([]).shape == (0, 512)
 
@@ -98,7 +115,7 @@ def test_search_many_equals_jax_and_finds_planted(planted):
     lib, jlib, queries, brute = planted
     qs = [q for _, _, q in queries]
     idx, scores = lib.search_many(qs, top_k=5, **HALF)
-    jidx, jscores = jlib.search_many(qs, top_k=5, **HALF)
+    jidx, jscores = jlib.search_many([jax_fp(q) for q in qs], top_k=5, **HALF)
     np.testing.assert_array_equal(idx, jidx)
     np.testing.assert_allclose(scores, jscores, rtol=0, atol=1e-7)
     identifiable = 0
@@ -110,7 +127,7 @@ def test_search_many_equals_jax_and_finds_planted(planted):
     assert identifiable >= 20
     for i in (3, 30):                                 # single-query search
         one = lib.search(qs[i], top_k=3, shortlist=32)
-        jone = jlib.search(qs[i], top_k=3, shortlist=32)
+        jone = jlib.search(jax_fp(qs[i]), top_k=3, shortlist=32)
         np.testing.assert_array_equal(one[0], jone[0])
         np.testing.assert_allclose(one[1], jone[1], rtol=0, atol=1e-7)
 
@@ -122,11 +139,11 @@ def test_search_synthetic_recall_equals_jax():
     fps = [Fingerprint(p, n) for p, n in zip(lib_pos, lib_neg)]
     query = Fingerprint(base_pos, base_neg)
     lib = FingerprintLibrary.from_fingerprints(fps)
-    jlib = JaxLibrary.from_fingerprints(fps, FingerprintConfig())
+    jlib = jax_library(fps)
     brute = lib.match(query)
     assert int(np.argmax(brute)) == 11
     idx, scores = lib.search(query, top_k=4, shortlist=8, chunk=16)
-    jidx, jscores = jlib.search(query, top_k=4, shortlist=8, chunk=16)
+    jidx, jscores = jlib.search(jax_fp(query), top_k=4, shortlist=8, chunk=16)
     assert idx[0] == 11
     np.testing.assert_array_equal(idx, jidx)
     np.testing.assert_allclose(scores, jscores, rtol=0, atol=1e-7)
@@ -141,10 +158,10 @@ def test_search_ties_equal_jax():
     fps = [bases[i % 5] for i in range(40)]
     query = Fingerprint(bases[2].pos[2:], bases[2].neg[2:])
     lib = FingerprintLibrary.from_fingerprints(fps)
-    jlib = JaxLibrary.from_fingerprints(fps, FingerprintConfig())
+    jlib = jax_library(fps)
     for kw in (dict(shortlist=12, chunk=16), dict(shortlist=64)):
         idx, scores = lib.search(query, top_k=10, **kw)
-        jidx, jscores = jlib.search(query, top_k=10, **kw)
+        jidx, jscores = jlib.search(jax_fp(query), top_k=10, **kw)
         np.testing.assert_array_equal(idx, jidx)
         np.testing.assert_allclose(scores, jscores, rtol=0, atol=1e-7)
         assert list(idx[:8]) == [2, 7, 12, 17, 22, 27, 32, 37]
@@ -155,9 +172,9 @@ def test_small_library_search_is_exact_sort():
     fps = [random_fp(rng, int(n)) for n in rng.integers(10, 40, size=9)]
     query = Fingerprint(fps[4].pos[1:], fps[4].neg[1:])
     for cls in (FingerprintLibrary, JaxLibrary):
-        lib = cls.from_fingerprints(fps, FingerprintConfig())
-        brute = np.asarray(lib.match(query))
-        idx, scores = lib.search(query, top_k=len(lib), shortlist=len(lib))
+        lib = make_library(cls, fps)
+        brute = np.asarray(lib.match(query_for(cls, query)))
+        idx, scores = lib.search(query_for(cls, query), top_k=len(lib), shortlist=len(lib))
         np.testing.assert_array_equal(idx, np.argsort(-brute, kind="stable"))
         np.testing.assert_array_equal(scores, brute[idx])
         assert idx[0] == 4
@@ -170,15 +187,16 @@ def test_extend_equals_fresh():
     fps = [random_fp(rng, n) for n in (12, 20, 9, 45, 30)]
     query = Fingerprint(fps[3].pos[2:30], fps[3].neg[2:30])
     for cls in (FingerprintLibrary, JaxLibrary):
-        base = cls.from_fingerprints(fps[:3], FingerprintConfig())
-        grown = base.extend(fps[3:])
-        fresh = cls.from_fingerprints(fps, FingerprintConfig())
+        base = make_library(cls, fps[:3])
+        grown = base.extend([query_for(cls, f) for f in fps[3:]])
+        fresh = make_library(cls, fps)
         assert len(grown) == len(fresh) == 5
         for a, b in ((grown.pos_words, fresh.pos_words), (grown.neg_words, fresh.neg_words),
                      (grown.counts, fresh.counts)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-        np.testing.assert_allclose(np.asarray(grown.match(query)),
-                                   np.asarray(fresh.match(query)), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(grown.match(query_for(cls, query))),
+                                   np.asarray(fresh.match(query_for(cls, query))),
+                                   rtol=0, atol=1e-6)
         assert grown.extend([]) is grown
     with pytest.raises(ValueError, match="pair count"):
         FingerprintLibrary.from_fingerprints(fps).extend([random_fp(rng, 5, pairs=64)])
@@ -199,12 +217,12 @@ def test_load_honours_stored_length(tmp_path):
     lib = FingerprintLibrary.from_fingerprints(fps, cfg)
     assert lib.pos_words.shape[2] == 2
     lib.save(str(tmp_path / "short.npz"))
-    JaxLibrary.from_fingerprints(fps, cfg).save(str(tmp_path / "short_jax.npz"))
+    jax_library(fps, cfg).save(str(tmp_path / "short_jax.npz"))
     for name in ("short.npz", "short_jax.npz"):
         for cls in (FingerprintLibrary, JaxLibrary):
             loaded = cls.load(str(tmp_path / name))
             assert loaded.config.subfingerprint_length == 128
-            np.testing.assert_allclose(np.asarray(loaded.match(fps[1])),
+            np.testing.assert_allclose(np.asarray(loaded.match(query_for(cls, fps[1]))),
                                        lib.match(fps[1]), rtol=0, atol=1e-7)
 
 
@@ -213,7 +231,7 @@ def test_npz_interchange_both_ways(tmp_path):
     fps = [random_fp(rng, int(n)) for n in rng.integers(5, 50, size=6)]
     cfg = FingerprintConfig()
     lib = FingerprintLibrary.from_fingerprints(fps, cfg)
-    jlib = JaxLibrary.from_fingerprints(fps, cfg)
+    jlib = jax_library(fps, cfg)
     lib.save(str(tmp_path / "port.npz"))
     jlib.save(str(tmp_path / "jax.npz"))
     with np.load(tmp_path / "port.npz") as a, np.load(tmp_path / "jax.npz") as b:
@@ -223,15 +241,15 @@ def test_npz_interchange_both_ways(tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     query = Fingerprint(fps[2].pos[3:], fps[2].neg[3:])
     from_jax = FingerprintLibrary.load(str(tmp_path / "jax.npz"), cfg)
-    from_port = JaxLibrary.load(str(tmp_path / "port.npz"), cfg)
+    from_port = JaxLibrary.load(str(tmp_path / "port.npz"), jax_config(cfg))
     np.testing.assert_array_equal(from_jax.match(query), lib.match(query))
-    np.testing.assert_allclose(np.asarray(from_port.match(query)), lib.match(query),
+    np.testing.assert_allclose(np.asarray(from_port.match(jax_fp(query))), lib.match(query),
                                rtol=0, atol=1e-6)
     other = FingerprintConfig(analysis_stride=32)
     for cls, name in ((FingerprintLibrary, "jax.npz"), (FingerprintLibrary, "port.npz"),
                       (JaxLibrary, "port.npz")):
         with pytest.raises(ValueError, match="hash mismatch"):
-            cls.load(str(tmp_path / name), other)
+            cls.load(str(tmp_path / name), jax_config(other) if cls is JaxLibrary else other)
 
 
 def test_library_refuses_bad_state():

@@ -10,14 +10,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
+from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.ops.constants import constants_to_tensors  # noqa: E402
 from lbaudiodetective_torch.ops.extract import required_padded_length  # noqa: E402
 from lbaudiodetective_torch.ops.kernels.fused_rows import (  # noqa: E402
     fused_band_rows, fused_band_rows_plain, kernel_eligible, rows_arrays)
 from lbaudiodetective_torch.ops.kernels.select_signs import (  # noqa: E402
     select_sign_classes_plain)
-from tests._torch_common import brown_noise  # noqa: E402
+from tests._torch_common import brown_noise, jax_config, non_finite_audio  # noqa: E402
 
 HOPS = {8: dict(), 64: dict(hop_domain="proc"),
         128: dict(hop_domain="proc", analysis_stride=128)}
@@ -47,13 +47,32 @@ def test_plain_rows_match_jax_v3_and_conv(hop):
     got = fused_band_rows(torch.from_numpy(audio), cfg, N_ROWS, consts, emit="coeffs")
     assert got.shape == (2, N_ROWS, 32) and got.dtype == torch.float32
     got = got.numpy()
-    v3 = np.asarray(fused_band_rows_v3(jnp.asarray(audio), cfg, N_ROWS,
+    jcfg = jax_config(cfg)
+    v3 = np.asarray(fused_band_rows_v3(jnp.asarray(audio), jcfg, N_ROWS,
                                        interpret=True, fuse_haar=True))
     _assert_coeffs_close(got, v3)
-    rows = spectral.conv_band_rows(jnp.asarray(audio), cfg, N_ROWS)
+    rows = spectral.conv_band_rows(jnp.asarray(audio), jcfg, N_ROWS)
     conv = np.asarray(haar_2d(rows.reshape(2, N_ROWS // 128, 128, 32),
-                              precision=cfg.precision)).reshape(2, N_ROWS, 32)
+                              precision=jcfg.precision)).reshape(2, N_ROWS, 32)
     _assert_coeffs_close(got, conv)
+
+
+@pytest.mark.parametrize("hop", sorted(HOPS))
+def test_plain_rows_with_non_finite_samples_match_jax_v3(hop):
+    import jax.numpy as jnp
+
+    from lbaudiodetective_tpu.ops.pallas.fused_rows_v2 import fused_band_rows_v3
+
+    cfg, audio, consts = _inputs(hop, seed=53)
+    audio = non_finite_audio(audio, hop)
+    got = fused_band_rows(torch.from_numpy(audio), cfg, N_ROWS, consts, emit="coeffs").numpy()
+    assert np.isfinite(got).all()
+    v3 = np.asarray(fused_band_rows_v3(jnp.asarray(audio), jax_config(cfg), N_ROWS,
+                                       interpret=True, fuse_haar=True))
+    _assert_coeffs_close(got, v3)
+    clean = fused_band_rows(torch.from_numpy(_inputs(hop, seed=53)[1]), cfg, N_ROWS, consts,
+                            emit="coeffs").numpy()
+    assert not np.allclose(got, clean)
 
 
 @pytest.mark.parametrize("hop", sorted(HOPS))
@@ -71,7 +90,7 @@ def test_plain_classes_agree_with_jax_two_stage(hop):
     cfg, audio, consts = _inputs(hop, n_rows=n_rows, seed=52)
     cls = fused_band_rows(torch.from_numpy(audio), cfg, n_rows, consts).numpy()
     assert cls.shape == (2, n_rows // 128, 128) and cls.dtype == np.int32
-    coeffs = fused_band_rows_v3(jnp.asarray(audio), cfg, n_rows, interpret=True,
+    coeffs = fused_band_rows_v3(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True,
                                 fuse_haar=True)
     ref = np.asarray(jax_sel(coeffs.reshape(-1, 4096), f_blk=8, interpret=True))
     assert (cls.reshape(-1, 128) == ref).mean() >= 0.999

@@ -12,12 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from lbaudiodetective_tpu.config import FingerprintConfig  # noqa: E402
-from lbaudiodetective_tpu.io.decode import DecodedAudio  # noqa: E402
+from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
+from lbaudiodetective_torch.io.decode import DecodedAudio  # noqa: E402
 from lbaudiodetective_torch.ops.extract import extract_fingerprint  # noqa: E402
 from lbaudiodetective_torch.streaming import (  # noqa: E402
     StreamingDetective, StreamingExtractor)
-from tests._torch_common import bit_agreement, brown_noise  # noqa: E402
+from tests._torch_common import bit_agreement, brown_noise, jax_config  # noqa: E402
 
 
 def _offline_reference(audio_batch, cfg, n_rows_avail):
@@ -151,7 +151,7 @@ def test_equals_jax_streaming(case):
                   "gather": (FingerprintConfig(integer_hop=False), 1024)}[case]
     audio = brown_noise(34, 2, 20480)
     ext = _stream(cfg, audio, chunk)
-    jax_ext = JaxStreaming(batch=2, chunk_size=chunk, config=cfg)
+    jax_ext = JaxStreaming(batch=2, chunk_size=chunk, config=jax_config(cfg))
     for s in range(audio.shape[1] // chunk):
         jax_ext.feed(audio[:, s * chunk:(s + 1) * chunk])
     assert (ext.aligned, ext.use_conv) == (jax_ext.aligned, jax_ext.use_conv)
