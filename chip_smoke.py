@@ -35,9 +35,10 @@ Phases (each failed check raises, and the script exits non-zero):
    seed, with phase 5's fingerprints and near-duplicates planted).  First
    the match kernel vs its plain version on 4,096-entry slices (ranges 0,
    100, 37, 64; W=4 and W=2; ragged counts; and the coarse pass's shape:
-   2 queries x 4 phases of 20 rows vs the strided library at range 64)
-   within 1e-6, and its time at 65,536 and 1M entries and for the coarse
-   pass over 1M.  Then, with the launch counts reset,
+   2 queries x 4 phases of 20 rows vs the strided library at range 64),
+   bit-equal, and its time at 65,536 and 1M entries and for the coarse pass
+   over 1M, each beside the bytes the scan needs and its __popc count (at
+   16 a clock an SM).  Then, with the launch counts reset,
    ``FingerprintLibrary.match`` over 1M, ``search`` at the shipped
    defaults for 16 planted queries (top-1 = the full scan's argmax, score
    equal to its bit), ``search_many``/``match_many`` at B=8, ``extend``,
@@ -45,20 +46,25 @@ Phases (each failed check raises, and the script exits non-zero):
    ``enroll`` + ``identify --top-k 3``; the match kernel's launch count
    over this part is > 0.
 
-7. Every extraction config.  The band-rows kernel (``csrc/band_rows.cu``)
-   against its plain version at batch 4 and 7,168 rows: rows mode at the
-   four fractional-hop configs (kernel 5), coefficients mode at
-   pitch_step_count=16, rows_per_frame=256 and subfingerprint_length=300
-   (kernel 2 at other geometries), and the v2 wrapper at hop 8 with and
-   without fuse_haar (kernel 4); within rtol 5e-4, atol 3e-6 * max, two runs
-   bit-identical, >= 99.9% of bits against the NumPy oracle on two clips at
+7. Every extraction config.  The band-rows kernel (``csrc/band_rows.cu``,
+   3xTF32 stage 2) against its plain version evaluated in float64 at batch
+   4 and 7,168 rows: rows mode at the four fractional-hop configs (kernel
+   5), coefficients mode at pitch_step_count=16, rows_per_frame=256 and
+   subfingerprint_length=300 (kernel 2 at other geometries), and the v2
+   wrapper at hop 8 with and without fuse_haar (kernel 4); within rtol
+   5e-4, atol 3e-6 * max (the largest error printed as a share of its bar,
+   and the float32 plain version's own share beside it), two runs
+   bit-identical, a NaN and a +inf sample zeroing only their windows,
+   >= 99.9% of bits against the NumPy oracle on two clips at
    integer_hop=False and at pitch_step_count=16; times at [4, 7168 rows]
-   beside the plain version and at [256, 7168 rows], the main path's launch
-   shape, where every clip is held against the plain version in slices of
-   16.  Then, with the launch counts reset,
-   ``AudioDetective(integer_hop=False)`` on 256 ten-second clips, the ``rows_impl="fused_v2"`` route, and the C-API layer on the card
+   beside the plain version and the 3xTF32 bound, and at [256, 7168 rows],
+   the main path's launch shape, where every clip is held against the
+   plain version in float64 in slices of 16.  Then, with the launch counts
+   reset, ``AudioDetective(integer_hop=False)`` on 256 ten-second clips,
+   the ``rows_impl="fused_v2"`` route, and the C-API layer on the card
    (``LBAudioDetectiveNew(device="cuda")``, the geometry setters,
-   ``ProcessAudioURL``/``CompareAudioURLs`` on written WAVs) against the
+   ``ProcessAudioURL``/``CompareAudioURLs`` on written WAVs), their bits
+   held to the NumPy oracle, their subfingerprint counts and scores to the
    CPU port; each band-rows wrapper's launch count over this part is > 0.
 8. Streaming, BASELINE config 4: ``StreamingExtractor(batch=256,
    device="cuda")`` fed 10 s a stream on the aligned path (chunk 1024,
@@ -74,8 +80,9 @@ The last three lines are the kernels' JSON record (each kernel's time,
 its plain version's and, where one PyTorch call computes the same function,
 that call's, beside ``bound_ms``: the larger of its bytes over 3.35 TB/s
 and its operations over the H100's peak for their type, 67 TFLOP/s FP32,
-495 TFLOP/s TF32), the ``nvidia-smi`` name and power limit, and the device
-JSON.
+495 TFLOP/s TF32; the match kernel's also at 1M entries and for the coarse
+pass: ``ms_1m``, ``bound_ms_1m``, ``coarse_ms_1m``, ``coarse_bound_ms_1m``),
+the ``nvidia-smi`` name and power limit, and the device JSON.
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
 
@@ -140,16 +147,55 @@ def rows_fma(cfg, n_windows: int, haar: bool) -> dict:
     return out
 
 
-def rows_bound(cfg, audio, n_rows: int) -> tuple[dict, float, float, float]:
-    """Bound of the fused rows kernel (classes) on ``audio``: its stage 2 in
-    3xTF32 on the tensor cores, the rest FP32, the audio read once and the
-    classes written once.  Also the time if the two pipes do not overlap,
-    and the TF32 and FP32 operations."""
-    fma = rows_fma(cfg, audio.shape[0] * n_rows, haar=True)
+def rows_bound(cfg, audio, n_rows: int, haar: bool = True,
+               out_bytes: int | None = None) -> tuple[dict, float, float, float]:
+    """Bound of a rows kernel on ``audio``: its stage 2 in 3xTF32 on the
+    tensor cores, the rest FP32, the audio read once and the output written
+    once (``out_bytes``; the fused kernel's classes by default).  Also the
+    time if the two pipes do not overlap, and the TF32 and FP32 operations."""
+    fma = rows_fma(cfg, audio.shape[0] * n_rows, haar=haar)
     tf32 = fma["stage2"] * 2 * 3
     fp32 = (fma["stage1"] + fma["projection"] + fma["haar"]) * 2
-    b = bound(audio.numel() * 4 + audio.shape[0] * n_rows * 4, tf32=tf32, fp32=fp32)
+    if out_bytes is None:
+        out_bytes = audio.shape[0] * n_rows * 4
+    b = bound(audio.numel() * 4 + out_bytes, tf32=tf32, fp32=fp32)
     return b, (tf32 / PEAK["tf32"] + fp32 / PEAK["fp32"]) * 1e3, tf32, fp32
+
+
+def band_rows_bound(cfg, audio, n_rows: int, coeffs: bool) -> tuple[dict, float]:
+    """Bound of the band-rows kernel (its stage 2 in 3xTF32, as the fused
+    kernel's) writing ``[B, n_rows, bands]`` float32, and the time if the
+    tensor-core and FP32 pipes do not overlap."""
+    b, serial_ms, _, _ = rows_bound(cfg, audio, n_rows, haar=coeffs,
+                                    out_bytes=audio.shape[0] * n_rows * cfg.pitch_step_count * 4)
+    return b, serial_ms
+
+
+def scan_work(q_counts, lib_counts, w: int, mask_pairs: int) -> tuple[int, int]:
+    """What a one-vs-many scan needs: the bytes (each entry's valid rows of
+    the compared words of both planes, the counts, the query's valid rows,
+    one score a (query, entry)) and the __popc (one a compared word for each
+    row of each offset of the orientation the reference selects: a
+    fingerprint row's pos and neg bits are disjoint, so one popc of
+    (Pl & Pq) | (Nl & Nq) counts both planes' hits)."""
+    wu = min(w, (mask_pairs + 31) // 32)
+    nl = lib_counts.to("cpu").long()
+    q = [int(x) for x in q_counts.to("cpu")]
+    n_bytes = int(nl.sum()) * wu * 8 + nl.numel() * 4 + sum(q) * wu * 8 + len(q) * nl.numel() * 4
+    popc = 0
+    for nq in q:
+        if nq > 0:
+            n_off = ((nl - nq).abs() + 1) * (nl > 0)
+            popc += int((n_off * nl.clamp(max=nq)).sum()) * wu
+    return n_bytes, popc
+
+
+def popc_ms(popc: int, sm_mhz: float) -> float:
+    """Time of ``popc`` __popc on the CUDA cores at 16 a clock an SM."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return popc / (16 * sms * sm_mhz * 1e6) * 1e3
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -594,8 +640,9 @@ def build_big_library(dev, fps):
     return lib, queries, [int(x) for x in slots[:16]], clip_of
 
 
-def phase_match_kernel(dev, lib, queries, smi: str) -> dict:
-    """The match kernel against its plain version, and its times."""
+def phase_match_kernel(dev, lib, queries, smi: str, sm_mhz: float) -> dict:
+    """The match kernel against its plain version (bit-equal), and its
+    times beside the bytes bound and the __popc count of each scan."""
     import numpy as np
     import torch
 
@@ -624,8 +671,8 @@ def phase_match_kernel(dev, lib, queries, smi: str) -> dict:
             exp = match_one_vs_many_fused_plain(qp, qn, nq, lp, ln, nl, m)
             e = float((got - exp).abs().max())
             err = max(err, e)
-            check(e <= MATCH_TOL, f"W={lp.shape[2]} range {cr}: kernel within {MATCH_TOL:g} "
-                                  f"of plain on 4096 entries (max abs err {e:.3e})")
+            check(torch.equal(got, exp), f"W={lp.shape[2]} range {cr}: kernel bit-equal to "
+                                         f"plain on 4096 entries")
             if cr == 0:
                 check(abs(float(got[0, 3]) - 1.0) <= MATCH_TOL and got[0, 0] == 0.0
                       and abs(float(got[1, 100]) - 1.0) <= MATCH_TOL,
@@ -646,9 +693,8 @@ def phase_match_kernel(dev, lib, queries, smi: str) -> dict:
     exp = match_one_vs_many_fused_plain(qcpw, qcnw, nc, lp, ln, nl, m)
     e = float((got - exp).abs().max())
     err = max(err, e)
-    check(got.shape == (8, 4096) and e <= MATCH_TOL,
-          f"coarse shape [8, 20, 4] x 4096 strided entries, range 64: kernel within "
-          f"{MATCH_TOL:g} of plain (max abs err {e:.3e})")
+    check(got.shape == (8, 4096) and torch.equal(got, exp),
+          "coarse shape [8, 20, 4] x 4096 strided entries, range 64: kernel bit-equal to plain")
     qp, qn, nq = lib.pos_words[3:4], lib.neg_words[3:4], lib.counts[3:4]
     sub = (lib.pos_words[:65536], lib.neg_words[:65536], lib.counts[:65536])
     ms = cuda_ms(lambda: match_one_vs_many_fused(qp, qn, nq, *sub, 100))
@@ -658,19 +704,26 @@ def phase_match_kernel(dev, lib, queries, smi: str) -> dict:
                                                      lib.neg_words, lib.counts, 100))
     coarse_ms = cuda_ms(lambda: match_one_vs_many_fused(qcpw[:4], qcnw[:4], nc[:4], lp_c,
                                                         ln_c, cnt_c, m))
-    # Bytes the scan needs: each entry's valid rows of both planes, the
-    # counts, the query and one score an entry.
+    # The bytes each scan needs (the bound) and its __popc beside it.
     w = lib.pos_words.shape[2]
-    b = bound(int(sub[2].sum()) * w * 2 * 4 + sub[2].numel() * 8 + int(nq.sum()) * w * 2 * 4)
+    work = {"65,536": scan_work(nq, sub[2], w, 100),
+            f"{N_BIG:,}": scan_work(nq, lib.counts, w, 100),
+            "coarse": scan_work(nc[:4], cnt_c[:N_BIG], w, m)}
+    b, b_1m, b_coarse = (bound(n_bytes) for n_bytes, _ in work.values())
     print(f"  match 1 x 65,536 x {BIG_S} rows: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); 1 x {N_BIG:,}: kernel "
-          f"{big_ms:.3f} ms; coarse pass (4 phases x {N_BIG:,} x 20 rows, range 64): kernel "
-          f"{coarse_ms:.3f} ms ({smi})", flush=True)
+          f"{big_ms:.3f} ms, bound {b_1m['bound_ms']:.4f} ms; coarse pass (4 phases x "
+          f"{N_BIG:,} x 20 rows, range 64): kernel {coarse_ms:.3f} ms, bound "
+          f"{b_coarse['bound_ms']:.4f} ms ({smi})", flush=True)
+    for name, (n_bytes, popc) in work.items():
+        print(f"  scan {name}: {n_bytes / 1e9:.4f} GB needed, {popc / 1e9:.4f} G __popc "
+              f"({popc_ms(popc, sm_mhz):.4f} ms at 16 a clock an SM, {sm_mhz:g} MHz)", flush=True)
     return {"name": "match_one_vs_many_fused", "route": "cuda",
             "source": "lbaudiodetective_torch/csrc/match_packed.cu",
             "replaces": "lbaudiodetective_tpu/ops/pallas/match_fused.py:138",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "ms_1m": big_ms, "coarse_ms_1m": coarse_ms}
+            "ms_1m": big_ms, "bound_ms_1m": b_1m["bound_ms"], "coarse_ms_1m": coarse_ms,
+            "coarse_bound_ms_1m": b_coarse["bound_ms"]}
 
 
 def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
@@ -793,9 +846,10 @@ COMPAT_SETTERS = {"default": (), "pitch_16": (("SetNumberOfPitchSteps", 16),),
 
 
 def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
-    """The band-rows kernel against its plain version in rows mode (kernel
-    5; kernel 4 without fuse_haar) and coefficients mode (kernel 2 at other
-    geometries; kernel 4 with fuse_haar), and its times."""
+    """The band-rows kernel against its plain version evaluated in float64
+    in rows mode (kernel 5; kernel 4 without fuse_haar) and coefficients
+    mode (kernel 2 at other geometries; kernel 4 with fuse_haar), and its
+    times beside its 3xTF32 bound."""
     import torch
 
     from lbaudiodetective_torch.config import FingerprintConfig
@@ -814,13 +868,32 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
         audio = torch.from_numpy(brown_noise(
             rng, batch, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
         got = fn(audio, cfg, BAND_ROWS_N, **kw)
-        exp = band_rows.band_rows_plain(audio, cfg, BAND_ROWS_N, coeffs)
-        ok, e, scale = within_rows_tol(got, exp)
-        check(ok, f"{label}: within rtol 5e-4, atol 3e-6*max (max abs err {e:.3e}, "
-                  f"max {scale:.3e})")
+        # Held to the plain version in float64; the float32 evaluation's own
+        # distance from it is printed beside.
+        exp = band_rows.band_rows_plain(audio.double(), cfg, BAND_ROWS_N, coeffs)
+        exp32 = band_rows.band_rows_plain(audio, cfg, BAND_ROWS_N, coeffs).double()
+        ok, e, scale = within_rows_tol(got.double(), exp)
+        check(ok, f"{label}: within rtol 5e-4, atol 3e-6*max of the plain version in float64 "
+                  f"(max abs err {e:.3e}, max {scale:.3e}, largest error "
+                  f"{bar_share(got.double(), exp):.3f} of its bar; the float32 plain version "
+                  f"is {bar_share(exp32, exp):.3f} of the bar from float64)")
         check(torch.equal(got, fn(audio, cfg, BAND_ROWS_N, **kw)),
               f"{label}: two runs bit-identical")
         err[fn.__name__] = max(err.get(fn.__name__, 0.0), e)
+        if label != "rows oracle_mode":
+            continue
+        # NaN at the first sample of clip 0's second sub-tile (the sample the
+        # kernel takes the sub-tile's level from) and +inf at clip 1's first
+        # sample zero only the windows that hold them.
+        bad = audio.clone()
+        bad[0, int(cfg.row_starts(BAND_ROWS_N)[128])] = float("nan")
+        bad[1, 0] = float("inf")
+        got_bad = fn(bad, cfg, BAND_ROWS_N, **kw)
+        ok, e, _ = within_rows_tol(got_bad.double(), band_rows.band_rows_plain(
+            bad.double(), cfg, BAND_ROWS_N, coeffs))
+        check(ok and bool(got_bad.isfinite().all()),
+              f"{label}, NaN and +inf samples: rows finite and within the bar of the plain "
+              f"version in float64 (max abs err {e:.3e})")
     oracle_agreement(dev, rng, FingerprintConfig(integer_hop=False), "integer_hop=False")
     oracle_agreement(dev, rng, FingerprintConfig(pitch_step_count=16), "pitch_step_count=16")
 
@@ -838,13 +911,11 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
         plain_ms = cuda_ms(lambda: band_rows.band_rows_plain(audio, cfg, BAND_ROWS_N, coeffs),
                            iters=5)
         name = f"band_rows.{fn.__name__}"
-        fma = sum(rows_fma(cfg, batch * BAND_ROWS_N, haar=coeffs).values())
-        b = bound(audio.numel() * 4 + batch * BAND_ROWS_N * cfg.pitch_step_count * 4,
-                  fp32=2 * fma)
+        b, serial_ms = band_rows_bound(cfg, audio, BAND_ROWS_N, coeffs)
         print(f"  {name} [{batch}, {BAND_ROWS_N} rows] ({'coefficients' if coeffs else 'rows'}, "
               f"hop {cfg.hop_in_processing_samples:.4f}, {cfg.pitch_step_count} bands): kernel "
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
-              f"({b['bound_by']})", flush=True)
+              f"({b['bound_by']}; {serial_ms:.3f} ms if the pipes do not overlap)", flush=True)
         records[name] = {"name": name, "route": "cuda",
                          "source": "lbaudiodetective_torch/csrc/band_rows.cu",
                          "replaces": replaces, "max_abs_err": err[fn.__name__],
@@ -853,24 +924,28 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
     main_audio = torch.from_numpy(brown_noise(
         rng, N_CLIPS, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
     main_ms = cuda_ms(lambda: band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N), iters=5)
-    main_bound = bound(main_audio.numel() * 4 + N_CLIPS * BAND_ROWS_N * 32 * 4,
-                       fp32=2 * sum(rows_fma(cfg, N_CLIPS * BAND_ROWS_N, haar=False).values()))
-    records["band_rows.fused_band_rows"].update(main_shape_ms=main_ms,
-                                                main_shape_bound_ms=main_bound["bound_ms"])
+    main_bound, main_serial_ms = band_rows_bound(cfg, main_audio, BAND_ROWS_N, False)
+    records["band_rows.fused_band_rows"].update(
+        main_shape_ms=main_ms, main_shape_bound_ms=main_bound["bound_ms"],
+        main_shape_bound_serial_ms=main_serial_ms)
     print(f"  band_rows.fused_band_rows [{N_CLIPS}, {BAND_ROWS_N} rows] (fractional hop): "
-          f"kernel {main_ms:.3f} ms, bound {main_bound['bound_ms']:.3f} ms ({smi})", flush=True)
-    # The main path's launch shape, every clip against the plain version (in
-    # slices: the plain gather holds ~60 MB of windows a clip).
+          f"kernel {main_ms:.3f} ms, bound {main_bound['bound_ms']:.3f} ms "
+          f"({main_bound['bound_by']}; {main_serial_ms:.3f} ms if the pipes do not overlap) "
+          f"({smi})", flush=True)
+    # The main path's launch shape, every clip against the plain version in
+    # float64 (in slices: the plain gather holds ~120 MB of windows a clip).
     got = band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N)
-    worst, failed = 0.0, []
+    worst, share, failed = 0.0, 0.0, []
     for i in range(0, N_CLIPS, MAIN_SLICE):
-        ok, e, _ = within_rows_tol(got[i:i + MAIN_SLICE], band_rows.band_rows_plain(
-            main_audio[i:i + MAIN_SLICE], cfg, BAND_ROWS_N))
+        exp = band_rows.band_rows_plain(main_audio[i:i + MAIN_SLICE].double(), cfg, BAND_ROWS_N)
+        ok, e, _ = within_rows_tol(got[i:i + MAIN_SLICE].double(), exp)
         worst = max(worst, e)
+        share = max(share, bar_share(got[i:i + MAIN_SLICE].double(), exp))
         if not ok:
             failed.append(i)
     check(not failed, f"rows at [{N_CLIPS}, {BAND_ROWS_N} rows]: every clip within rtol 5e-4, "
-                      f"atol 3e-6*max of its slice (max abs err {worst:.3e}; slices failing "
+                      f"atol 3e-6*max of its slice of the plain version in float64 (max abs "
+                      f"err {worst:.3e}, largest error {share:.3f} of its bar; slices failing "
                       f"at clips {failed})")
     rec = records["band_rows.fused_band_rows"]
     rec["max_abs_err"] = max(rec["max_abs_err"], worst)
@@ -885,9 +960,11 @@ def phase_every_config(dev, rng) -> dict:
     import torch
 
     from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.io.decode import decode_audio_file
     from lbaudiodetective_torch.io.wav import write_wav
     from lbaudiodetective_torch import compat
     from lbaudiodetective_torch.models.detective import AudioDetective
+    from lbaudiodetective_torch.oracle.pipeline import oracle_fingerprint
     from lbaudiodetective_torch.ops.extract import (
         extract_fingerprint_padded, required_padded_length)
 
@@ -908,10 +985,11 @@ def phase_every_config(dev, rng) -> dict:
     check(all(f.num_subfingerprints == n_exp for f in fps),
           f"{N_CLIPS} fractional-hop fingerprints of {n_exp} subfingerprints")
     check(all(a == b for a, b in zip(fps, fps2)), "repeated batch bit-identical")
-    ref = AudioDetective(cfg, device="cpu").process_decoded_batch(clips[:2])
-    for i, f in enumerate(ref):
-        agree = ((f.pos == fps[i].pos).mean() + (f.neg == fps[i].neg).mean()) / 2
-        check(agree >= 0.999, f"fractional clip {i}: {agree:.5f} of bits equal to the CPU path")
+    for i in range(2):
+        opos, oneg = oracle_fingerprint(clips[i], cfg)
+        agree = ((opos == fps[i].pos).mean() + (oneg == fps[i].neg).mean()) / 2
+        check(agree >= 0.999, f"fractional clip {i}: {agree:.5f} of bits equal to the NumPy "
+                              "oracle")
     print(f"  AudioDetective(integer_hop=False).process_decoded_batch({N_CLIPS} x "
           f"{CLIP_SECONDS:g} s): {out['fractional_batch_s'] * 1e3:.1f} ms warm "
           f"({out['fractional_clips_per_s']:.1f} clips/s), first call "
@@ -940,10 +1018,13 @@ def phase_every_config(dev, rng) -> dict:
                 getattr(compat, "LBAudioDetective" + name)(cpu, value)
             fp = compat.LBAudioDetectiveProcessAudioURL(gpu, a)
             cfp = compat.LBAudioDetectiveProcessAudioURL(cpu, a)
-            agree = ((fp.pos == cfp.pos).mean() + (fp.neg == cfp.neg).mean()) / 2
+            opos, oneg = oracle_fingerprint(
+                decode_audio_file(a, gpu.config.processing_sample_rate), gpu.config)
+            agree = ((fp.pos == opos).mean() + (fp.neg == oneg).mean()) / 2
             check(fp.num_subfingerprints == cfp.num_subfingerprints > 0 and agree >= 0.999,
                   f"compat {case}: ProcessAudioURL on the card, {fp.num_subfingerprints} "
-                  f"subfingerprints, {agree:.5f} of bits equal to the CPU port")
+                  f"subfingerprints as on the CPU port, {agree:.5f} of bits equal to the NumPy "
+                  "oracle")
             score = compat.LBAudioDetectiveCompareAudioURLs(gpu, a, b)
             fb = compat.LBAudioDetectiveGetFingerprint(gpu)
             same = cpu.compare_fingerprints(fp, fb)
@@ -1061,6 +1142,14 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (``nvidia-smi``'s clocks.max.sm)."""
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                          check=True)
+    return float(proc.stdout.strip().splitlines()[0])
+
+
 def main() -> int:
     try:
         import torch
@@ -1116,7 +1205,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[6] {N_BIG:,}-entry library built on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    records.append(phase_match_kernel(dev, lib, queries, smi))
+    records.append(phase_match_kernel(dev, lib, queries, smi, sm_clock_mhz()))
     kernels.reset_launch_counts()
     main_out["library"] = phase_library(dev, lib, queries, originals, clip_of, smi)
     n = kernels.launch_counts()["match_one_vs_many_fused"]

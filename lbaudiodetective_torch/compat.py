@@ -29,6 +29,7 @@ from lbaudiodetective_torch.config import (
     DEFAULT_SUBFINGERPRINT_LENGTH,
     DEFAULT_WINDOW_SIZE,
 )
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
 from lbaudiodetective_torch.errors import InvalidArgumentError
 from lbaudiodetective_torch.models.fingerprint import (
     Fingerprint, FingerprintBuilder, compare_subfingerprint_booleans)
@@ -45,17 +46,10 @@ kLBAudioDetectiveDefaultNumberOfRowsPerFrame = DEFAULT_ROWS_PER_FRAME
 kLBAudioDetectiveDefaultSubfingerprintLength = DEFAULT_SUBFINGERPRINT_LENGTH
 
 
-def _device(device: torch.device | str) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: CUDA is not available")
-    return device
-
-
 # -- detective lifecycle (LBAudioDetective.h:41-56) -------------------------
 
-def LBAudioDetectiveNew(*, device: torch.device | str = "cuda") -> AudioDetective:
-    return AudioDetective(device=_device(device))
+def LBAudioDetectiveNew(*, device: torch.device | str = DEFAULT_DEVICE) -> AudioDetective:
+    return AudioDetective(device=device)
 
 
 def LBAudioDetectiveDispose(detective: AudioDetective) -> None:
@@ -237,11 +231,11 @@ def stringFromFingerprint(fp: Fingerprint) -> str:
 
 def LBAudioDetectiveFingerprintCompareToFingerprint(
         fp1: Fingerprint, fp2: Fingerprint, comparison_range: int = 0, *,
-        device: torch.device | str = "cuda") -> float:
+        device: torch.device | str = DEFAULT_DEVICE) -> float:
     """Offset-sliding match on ``device``.  As in the reference, range 0
     compares zero booleans, so the match is 0.0 (Fingerprint.m:155,171-175);
     only CompareAudioURLs turns range 0 into the subfingerprint length."""
-    device = _device(device)
+    device = resolve_device(device, "LBAudioDetectiveFingerprintCompareToFingerprint")
     if comparison_range == 0:
         return 0.0
     return match_fingerprints((fp1.pos, fp1.neg), (fp2.pos, fp2.neg),

@@ -118,10 +118,37 @@ __device__ __forceinline__ void stage2_load_a(const float* g, int row0, int col,
   }
 }
 
+// The four real products of one k-step into one slot tile's sums (re, im):
+// X_re += G_re T_re - G_im T_im;  X_im += G_re T_im + G_im T_re, the small
+// terms first, then the a_hi b_hi terms.
+__device__ __forceinline__ void stage2_terms(float (&re)[4], float (&im)[4],
+                                             const uint32_t (&re_hi)[4],
+                                             const uint32_t (&re_lo)[4],
+                                             const uint32_t (&im_hi)[4],
+                                             const uint32_t (&im_lo)[4], const float4 t_re,
+                                             const float4 t_im) {
+  constexpr uint32_t kSign = 0x80000000u;
+  mma_small(re, re_hi, re_lo, t_re, 0u);
+  mma_small(re, im_hi, im_lo, t_im, kSign);
+  mma_small(im, re_hi, re_lo, t_im, 0u);
+  mma_small(im, im_hi, im_lo, t_re, 0u);
+  mma_big(re, re_hi, t_re, 0u);
+  mma_big(re, im_hi, t_im, kSign);
+  mma_big(im, re_hi, t_im, 0u);
+  mma_big(im, im_hi, t_re, 0u);
+}
+
 // One chunk of 32 b: acc += G[:, chunk] T[chunk, :] for the calling warp's
 // 16 windows and slot tiles [tile0, tile0 + kS2WarpSlotTiles).  g: the
 // windows' block, G_re [16][32] then G_im (stage2_g_index), in shared
 // memory; tw: the chunk's fragments (kS2TwFloats) in shared memory.
+// kFresh sums each slot tile's k-step of 8 b in a fresh accumulator and
+// adds it to acc in float32 (round to nearest): the tensor cores'
+// truncation then acts on an 8-term partial sum, not on the running sum,
+// which leaves the result ~4x closer to the exact product for 24 more float
+// adds a k-step (csrc/band_rows.cu).  Without it the terms go straight into
+// acc (csrc/fused_rows.cu).
+template <bool kFresh = false>
 __device__ __forceinline__ void stage2_chunk(const float* g, const float* tw, int tile0,
                                              Stage2Acc& acc) {
   const float* g_re = g;
@@ -130,7 +157,6 @@ __device__ __forceinline__ void stage2_chunk(const float* g, const float* tw, in
   const int row0 = lane >> 2;
   const int tig = lane & 3;
   const float4* frag = reinterpret_cast<const float4*>(tw);
-  constexpr uint32_t kSign = 0x80000000u;
 #pragma unroll
   for (int ks = 0; ks < kS2KSteps; ++ks) {
     uint32_t re_hi[4], re_lo[4], im_hi[4], im_lo[4];
@@ -140,15 +166,17 @@ __device__ __forceinline__ void stage2_chunk(const float* g, const float* tw, in
     for (int t = 0; t < kS2WarpSlotTiles; ++t) {
       const float4 t_re = frag[((ks * kS2SlotTiles + tile0 + t) * 2 + 0) * 32 + lane];
       const float4 t_im = frag[((ks * kS2SlotTiles + tile0 + t) * 2 + 1) * 32 + lane];
-      // X_re += G_re T_re - G_im T_im;  X_im += G_re T_im + G_im T_re.
-      mma_small(acc.re[t], re_hi, re_lo, t_re, 0u);
-      mma_small(acc.re[t], im_hi, im_lo, t_im, kSign);
-      mma_small(acc.im[t], re_hi, re_lo, t_im, 0u);
-      mma_small(acc.im[t], im_hi, im_lo, t_re, 0u);
-      mma_big(acc.re[t], re_hi, t_re, 0u);
-      mma_big(acc.re[t], im_hi, t_im, kSign);
-      mma_big(acc.im[t], re_hi, t_im, 0u);
-      mma_big(acc.im[t], im_hi, t_re, 0u);
+      if constexpr (kFresh) {
+        float re[4] = {0.0f, 0.0f, 0.0f, 0.0f}, im[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        stage2_terms(re, im, re_hi, re_lo, im_hi, im_lo, t_re, t_im);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc.re[t][i] += re[i];
+          acc.im[t][i] += im[i];
+        }
+      } else {
+        stage2_terms(acc.re[t], acc.im[t], re_hi, re_lo, im_hi, im_lo, t_re, t_im);
+      }
     }
   }
 }
@@ -183,6 +211,26 @@ __device__ __forceinline__ void stage2_prefetch(const float* src, float* dst) {
 // Waits until every cp.async group of this thread landed.
 __device__ __forceinline__ void stage2_wait_prefetch() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// The residue-0 offset of one window, from the warp that holds its stage-1
+// values for b0 .. b0 + 31 (a lane each): at b0 == 0 the mean of those 32,
+// taken by lane 0's order and stored to *dc; later chunks read *dc.  Every
+// lane subtracts the same value, so the offset is constant over b.  Residue
+// 0's stage-2 twiddles sum to zero over b, so X does not change; the
+// products then work on the small remainder, not the window's level.
+__device__ __forceinline__ float residue0_offset(float g, int b0, float* dc) {
+  if (b0 != 0) return *dc;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) g += __shfl_xor_sync(0xFFFFFFFFu, g, off);
+  const float mean = __shfl_sync(0xFFFFFFFFu, g, 0) * (1.0f / 32.0f);
+  if ((threadIdx.x & 31) == 0) *dc = mean;
+  return mean;
+}
+
+// Barrier of the two warps of window slab `slab` (named barriers 1-8).
+__device__ __forceinline__ void pair_sync(int slab) {
+  asm volatile("bar.sync %0, 64;" :: "r"(slab + 1) : "memory");
 }
 
 }  // namespace lbad

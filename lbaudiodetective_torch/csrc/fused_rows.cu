@@ -131,24 +131,6 @@ static_assert(lbad::kS2WarpGFloats >= kSlab * kVStride, "a slab's V");
 static_assert(kTwFloats >= 2 * lbad::kSelectScratchWords, "select scratch region");
 static_assert(kVStride % 4 == 0, "V rows read as float4");
 
-// The residue-0 offset of one window, from the warp that holds its stage-1
-// values for b0 .. b0 + 31 (a lane each): at b0 == 0 the mean of those 32,
-// taken by lane 0's order and stored to *dc; later chunks read *dc.  Every
-// lane subtracts the same value, so the offset is constant over b.
-__device__ __forceinline__ float residue0_offset(float g, int b0, float* dc) {
-  if (b0 != 0) return *dc;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) g += __shfl_xor_sync(0xFFFFFFFFu, g, off);
-  const float mean = __shfl_sync(0xFFFFFFFFu, g, 0) * (1.0f / 32.0f);
-  if ((threadIdx.x & 31) == 0) *dc = mean;
-  return mean;
-}
-
-// Barrier of the two warps of slab `slab` (named barriers 1-8).
-__device__ __forceinline__ void pair_sync(int slab) {
-  asm volatile("bar.sync %0, 64;" :: "r"(slab + 1) : "memory");
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 fused_rows_kernel(const float* __restrict__ audio, long long t_len, int n_tiles,
                   int hop, int span_pad,
@@ -235,7 +217,7 @@ fused_rows_kernel(const float* __restrict__ audio, long long t_len, int n_tiles,
       }
 #pragma unroll
       for (int w = 0; w < kGroup; ++w) {
-        if (r == 0) gr[w] -= residue0_offset(gr[w], b0, dc + p0 + w);
+        if (r == 0) gr[w] -= lbad::residue0_offset(gr[w], b0, dc + p0 + w);
         g_re[lbad::stage2_g_index(q0 + w, lane)] = gr[w];
         g_im[lbad::stage2_g_index(q0 + w, lane)] = gi[w];
       }
@@ -252,7 +234,7 @@ fused_rows_kernel(const float* __restrict__ audio, long long t_len, int n_tiles,
           gr = fmaf(xv, cr[a * kA], gr);
           gi = fmaf(xv, ci[a * kA], gi);
         }
-        if (r == 0) gr -= residue0_offset(gr, b0, dc + p);
+        if (r == 0) gr -= lbad::residue0_offset(gr, b0, dc + p);
         g_re[lbad::stage2_g_index(q0 + w, lane)] = gr;
         g_im[lbad::stage2_g_index(q0 + w, lane)] = gi;
       }
@@ -268,12 +250,16 @@ fused_rows_kernel(const float* __restrict__ audio, long long t_len, int n_tiles,
     const int b0 = (c % kChunksPerResidue) * kChunk;
     if (b0 == 0) lbad::stage2_zero(acc);
     if (!(kSkip & 2)) {
+      // The direct order: products go straight into the running sums.  It
+      // is ~4x further from float64 than stage2_chunk<true>'s fresh sum a
+      // k-step (band_rows.cu), which costs band rows ~3.5 ms at [256, 7168
+      // rows]; at 128 x 32 it stays within the bar and the oracle's 99.9 %.
       lbad::stage2_chunk(g_re, tw + (c % kTwBufs) * lbad::kS2TwFloats, tile0, acc);
     }
     if (b0 + kChunk < kB) return;
     // Q5, |X|^2 and non-finite -> 0, into the slab's V [16][kVStride], over
     // the G both warps of the pair have just read.
-    pair_sync(slab);
+    lbad::pair_sync(slab);
     float* v = g_re;
 #pragma unroll
     for (int t = 0; t < lbad::kS2WarpSlotTiles; ++t) {
@@ -288,7 +274,7 @@ fused_rows_kernel(const float* __restrict__ audio, long long t_len, int n_tiles,
         v[lbad::stage2_row(i) * kVStride + lbad::stage2_slot(tile0, t, i)] = e;
       }
     }
-    pair_sync(slab);
+    lbad::pair_sync(slab);
     // Band projection of residue r for this warp's 8 windows:
     // rows[p][k] += sum_slot V[p][slot] P_r[slot][k], slots ascending, four
     // at a time (V's slots from k_max on are 0, as are P_r's).
@@ -330,7 +316,7 @@ fused_rows_kernel(const float* __restrict__ audio, long long t_len, int n_tiles,
             ? t2_frag + static_cast<size_t>(next) * lbad::kS2TwFloats : nullptr,
         tw + (next % kTwBufs) * lbad::kS2TwFloats);
     if (!(kSkip & 1)) stage1(k);
-    pair_sync(slab);
+    lbad::pair_sync(slab);
     stage2(k);
   }
 

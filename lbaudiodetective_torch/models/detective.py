@@ -1,9 +1,9 @@
 """AudioDetective: the end-to-end pipeline object (port of
 the JAX package's ``models/detective.py``).
 
-Decode on the host -> extract on ``device`` -> match on ``device``.  The
-device is explicit: ``AudioDetective(config, device="cuda")`` runs the
-kernels and raises when CUDA is absent; it never falls back to the CPU.
+Decode on the host -> extract on ``device`` -> match on ``device``.
+``AudioDetective(config)`` runs the kernels on CUDA and raises when CUDA is
+absent; it never falls back to the CPU.  CPU use passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
 from lbaudiodetective_torch.io.decode import DecodedAudio, decode_audio_file
 from lbaudiodetective_torch.models.fingerprint import Fingerprint
 from lbaudiodetective_torch.utils.packing import words_per_plane
@@ -26,10 +27,8 @@ class AudioDetective:
     """Decode -> extract -> match pipeline with reference-compatible knobs."""
 
     def __init__(self, config: FingerprintConfig | None = None,
-                 device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("AudioDetective(device='cuda'): CUDA is not available")
+                 device: torch.device | str = DEFAULT_DEVICE):
+        self.device = resolve_device(device, "AudioDetective")
         self.config = config or FingerprintConfig()
         #: Recording-format preference (only the sample rate is tunable).
         self.recording_sample_rate = 44100.0

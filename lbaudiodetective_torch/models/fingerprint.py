@@ -111,13 +111,15 @@ class Fingerprint:
         neg[:, : length // 2] = bits[:, 1::2]
         return cls(pos, neg, subfingerprint_length)
 
-    def compare(self, other: "Fingerprint", comparison_range: int = 0) -> float:
+    def compare(self, other: "Fingerprint", comparison_range: int = 0,
+                device: str = "cuda") -> float:
         """Offset-sliding match score in [0, 1]
-        (LBAudioDetectiveFingerprintCompareToFingerprint)."""
+        (LBAudioDetectiveFingerprintCompareToFingerprint), computed on
+        ``device`` (``match_fingerprints``)."""
         from lbaudiodetective_torch.ops.match import match_fingerprints
 
         return match_fingerprints((self.pos, self.neg), (other.pos, other.neg),
-                                  comparison_range, self.subfingerprint_length)
+                                  comparison_range, self.subfingerprint_length, device)
 
 
 class FingerprintBuilder:
@@ -205,10 +207,10 @@ class FingerprintBuilder:
     def to_string(self) -> str:
         return self.freeze().to_string()
 
-    def compare(self, other, comparison_range: int = 0) -> float:
+    def compare(self, other, comparison_range: int = 0, device: str = "cuda") -> float:
         return self.freeze().compare(
             other.freeze() if isinstance(other, FingerprintBuilder) else other,
-            comparison_range)
+            comparison_range, device)
 
     def __eq__(self, other) -> bool:
         if isinstance(other, (FingerprintBuilder, Fingerprint)):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
 from lbaudiodetective_torch.models.fingerprint import Fingerprint
 from lbaudiodetective_torch.utils import packing, serialize
 from lbaudiodetective_torch.ops.extract import bucket_subfingerprints
@@ -60,13 +61,6 @@ def pack_fingerprints(fps: list[Fingerprint], s: int, w: int
         pos[i, :pw.shape[0]] = pw
         neg[i, :nw.shape[0]] = nw
     return pos, neg, counts
-
-
-def _device(device: torch.device | str) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("FingerprintLibrary(device='cuda'): CUDA is not available")
-    return device
 
 
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
@@ -115,11 +109,11 @@ class FingerprintLibrary:
     def from_arrays(cls, pos_words: np.ndarray, neg_words: np.ndarray,
                     counts: np.ndarray, pairs: int,
                     config: FingerprintConfig | None = None,
-                    device: torch.device | str = "cpu") -> "FingerprintLibrary":
+                    device: torch.device | str = DEFAULT_DEVICE) -> "FingerprintLibrary":
         """A library on ``device`` from host state: ``[L, S, W]`` uint32 (or
         int32) words and ``[L]`` counts, e.g. a JAX library's
         ``np.asarray(lib.pos_words)``, ``neg_words``, ``counts``."""
-        device = _device(device)
+        device = resolve_device(device, "FingerprintLibrary")
         return cls(_words(pos_words, device), _words(neg_words, device),
                    _host_tensor(np.asarray(counts, np.int32)).to(device),
                    pairs, config)
@@ -127,7 +121,7 @@ class FingerprintLibrary:
     @classmethod
     def from_fingerprints(cls, fps: list[Fingerprint],
                           config: FingerprintConfig | None = None,
-                          device: torch.device | str = "cpu") -> "FingerprintLibrary":
+                          device: torch.device | str = DEFAULT_DEVICE) -> "FingerprintLibrary":
         if not fps:
             raise ValueError("empty library")
         pairs = fps[0].pairs
@@ -283,7 +277,7 @@ class FingerprintLibrary:
 
     @classmethod
     def load(cls, path: str, config: FingerprintConfig | None = None,
-             device: torch.device | str = "cpu") -> "FingerprintLibrary":
+             device: torch.device | str = DEFAULT_DEVICE) -> "FingerprintLibrary":
         with np.load(path) as z:
             if config is not None:
                 stored = bytes(z["params_hash"]).decode()

@@ -5,9 +5,9 @@ These builders are copies of the NumPy constant builders of the JAX package
 (the JAX package's ``ops.{haar,dft,spectral}`` and
 ``ops.pallas.{fused_rows,fused_rows_v2}``), which live in modules that import
 JAX.  They must stay bit-equal to those (``tests/test_torch_constants.py``):
-they are the "weights" of a system that has no model.  ``tf32_split`` and
-``stage2_fragments`` have no JAX counterpart: they lay the twiddles out for
-the port's tensor-core stage 2.
+they are the "weights" of a system that has no model.  ``tf32_split``,
+``stage2_fragments`` and ``projection_passes`` have no JAX counterpart: they
+lay the twiddles and the projection out for the port's tensor-core stage 2.
 """
 
 from __future__ import annotations
@@ -193,35 +193,55 @@ def tf32_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 S2_CHUNK, S2_KSTEPS, S2_SLOT_TILES = 32, 4, 6
 
 
-def stage2_fragments(t2a: np.ndarray, k_max: int) -> np.ndarray:
-    """The stage-2 twiddles of ``t2a`` (``v2_constants``: ``t_re`` in lanes
-    [0, k_max), ``t_im`` in [64, 64 + k_max)) split into TF32 hi and lo and
-    laid out in ``mma.m16n8k8`` B-fragment order for ``csrc/dft_stage2.cuh``:
-    ``[residue, chunk, k-step, slot tile, part (re, im), lane, 4]`` float32,
-    where lane ``(g, t) = (lane >> 2, lane & 3)`` holds ``{hi(T[b]),
-    hi(T[b + 4]), lo(T[b]), lo(T[b + 4])}`` for b = 32 chunk + 8 k-step + t
-    and slot 8 tile + g; slots from k_max on are zero."""
-    n_res, b_len = t2a.shape[:2]
+def stage2_passes(k_max: int) -> int:
+    """Passes of 48 slots that stage 2 runs for ``k_max`` slots a residue."""
+    return -(-k_max // (8 * S2_SLOT_TILES))
+
+
+def stage2_fragments(t_re: np.ndarray, t_im: np.ndarray) -> np.ndarray:
+    """The stage-2 twiddles ``t_re``/``t_im`` (``[residue, b, k_max]``, as
+    ``kernel_constants`` builds them) split into TF32 hi and lo and laid out
+    in ``mma.m16n8k8`` B-fragment order for ``csrc/dft_stage2.cuh``, in passes
+    of 48 slots: ``[residue, pass, chunk, k-step, slot tile, part (re, im),
+    lane, 4]`` float32, where lane ``(g, t) = (lane >> 2, lane & 3)`` holds
+    ``{hi(T[b]), hi(T[b + 4]), lo(T[b]), lo(T[b + 4])}`` for b = 32 chunk +
+    8 k-step + t and slot 48 pass + 8 tile + g; slots from k_max on are
+    zero.  At k_max <= 48 there is one pass."""
+    n_res, b_len, k_max = t_re.shape
+    if b_len % S2_CHUNK:
+        raise ValueError(f"stage 2 takes b a multiple of {S2_CHUNK}")
+    passes = stage2_passes(k_max)
     slots = 8 * S2_SLOT_TILES
-    if k_max > slots or b_len % S2_CHUNK:
-        raise ValueError(f"stage 2 takes k_max <= {slots} and b a multiple of {S2_CHUNK}")
-    t = np.zeros((2, n_res, b_len, slots), np.float32)          # (re, im)
-    t[0, :, :, :k_max] = t2a[:, :, :k_max]
-    t[1, :, :, :k_max] = t2a[:, :, 64:64 + k_max]
+    t = np.zeros((2, n_res, b_len, passes * slots), np.float32)      # (re, im)
+    t[0, :, :, :k_max] = t_re
+    t[1, :, :, :k_max] = t_im
     hi, lo = tf32_split(t)
     lane = np.arange(32)
     g, tig = lane >> 2, lane & 3
     chunks = b_len // S2_CHUNK
-    c = np.arange(chunks)[:, None, None, None]
-    ks = np.arange(S2_KSTEPS)[None, :, None, None]
-    tile = np.arange(S2_SLOT_TILES)[None, None, :, None]
-    b = S2_CHUNK * c + 8 * ks + tig                              # [c, ks, 1, lane]
-    slot = 8 * tile + g                                          # [1, 1, tile, lane]
-    out = np.empty((n_res, chunks, S2_KSTEPS, S2_SLOT_TILES, 2, 32, 4), np.float32)
+    pa = np.arange(passes)[:, None, None, None, None]
+    c = np.arange(chunks)[None, :, None, None, None]
+    ks = np.arange(S2_KSTEPS)[None, None, :, None, None]
+    tile = np.arange(S2_SLOT_TILES)[None, None, None, :, None]
+    b = S2_CHUNK * c + 8 * ks + tig                       # [1, c, ks, 1, lane]
+    slot = slots * pa + 8 * tile + g                      # [pass, 1, 1, tile, lane]
+    out = np.empty((n_res, passes, chunks, S2_KSTEPS, S2_SLOT_TILES, 2, 32, 4), np.float32)
     for part in range(2):
         for k, (plane, dk) in enumerate(((hi, 0), (hi, 4), (lo, 0), (lo, 4))):
-            out[:, :, :, :, part, :, k] = plane[part][:, b + dk, slot]
+            out[..., part, :, k] = plane[part][:, b + dk, slot]
     return out
+
+
+def projection_passes(proj_perm: np.ndarray, k_max: int) -> np.ndarray:
+    """The permuted band projection (rows ``r * k_max + slot``) as
+    ``[residue, pass, 48, bands]`` float32 in stage 2's passes of 48 slots,
+    zero past k_max."""
+    bands = proj_perm.shape[1]
+    n_res = proj_perm.shape[0] // k_max
+    slots = 8 * S2_SLOT_TILES
+    out = np.zeros((n_res, stage2_passes(k_max) * slots, bands), np.float32)
+    out[:, :k_max] = proj_perm.reshape(n_res, k_max, bands)
+    return out.reshape(n_res, -1, slots, bands)
 
 
 @lru_cache(maxsize=8)

@@ -30,11 +30,13 @@ def rdft_bins(windows: torch.Tensor, bin_lo: int, bin_hi: int
     """``[..., window] -> (re, im)`` each ``[..., bin_hi - bin_lo]``: 2x the
     real DFT at bins [bin_lo, bin_hi), vDSP-scaled.
 
-    Requires ``1 <= bin_lo`` and ``bin_hi <= window / 2``."""
+    Requires ``1 <= bin_lo`` and ``bin_hi <= window / 2``.  Runs in the
+    windows' float type (float64 evaluates a plain version exactly)."""
     n = windows.shape[-1]
     if not (1 <= bin_lo and bin_hi <= n // 2):
         raise ValueError("rdft_bins requires bins inside (0, n/2)")
     c1, s1, t_re, t_im, perm = _dft_tensors(n, bin_lo, bin_hi, str(windows.device))
+    c1, s1, t_re, t_im = (t.to(windows.dtype) for t in (c1, s1, t_re, t_im))
     y = windows.reshape(*windows.shape[:-1], STAGE1, n // STAGE1)   # [..., a, b]
     g_re = torch.einsum("...ab,ar->...br", y, c1)
     g_im = torch.einsum("...ab,ar->...br", y, s1)

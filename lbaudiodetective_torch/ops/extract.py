@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
 from lbaudiodetective_torch.io.decode import DecodedAudio
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
@@ -124,11 +125,11 @@ class FingerprintExtractor(nn.Module):
     chosen path (for example with the JAX package's own)."""
 
     def __init__(self, config: FingerprintConfig | None = None,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = DEFAULT_DEVICE,
                  arrays: dict[str, np.ndarray] | None = None):
         super().__init__()
         self.config = config or FingerprintConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "FingerprintExtractor")
         self.impl = rows_impl(self.config, self.device)
         if arrays is None:
             arrays = extractor_arrays(self.config, self.impl)
@@ -199,7 +200,8 @@ class FingerprintExtractor(nn.Module):
 
 
 @lru_cache(maxsize=8)
-def get_extractor(config: FingerprintConfig, device: str = "cpu") -> FingerprintExtractor:
+def get_extractor(config: FingerprintConfig,
+                  device: str = DEFAULT_DEVICE) -> FingerprintExtractor:
     """Shared extractor per (config, device)."""
     return FingerprintExtractor(config, device)
 
@@ -237,11 +239,12 @@ def bucket_subfingerprints(n_sub: int, granularity: int = 8) -> int:
 
 def extract_fingerprint(audio: DecodedAudio, config: FingerprintConfig | None = None,
                         n_sub_max: int | None = None,
-                        device: torch.device | str = "cpu"
+                        device: torch.device | str = DEFAULT_DEVICE
                         ) -> tuple[np.ndarray, np.ndarray, int]:
     """Single-clip extraction on ``device``: decoded audio -> NumPy uint8
     (pos, neg) trimmed to the valid length, and that length."""
     config = config or FingerprintConfig()
+    device = resolve_device(device, "extract_fingerprint")
     n_sub = config.num_subfingerprints(audio.file_frames, audio.proc_frames)
     bucket = n_sub_max if n_sub_max is not None else bucket_subfingerprints(n_sub)
     if bucket == 0:
@@ -252,7 +255,6 @@ def extract_fingerprint(audio: DecodedAudio, config: FingerprintConfig | None = 
     x = np.zeros(t_pad, np.float32)
     t = min(audio.samples.shape[0], t_pad)
     x[:t] = audio.samples[:t]
-    device = torch.device(device)
     pos, neg = extract_fingerprint_padded(
         torch.from_numpy(x).to(device), torch.tensor(n_sub), config, n_rows)
     return pos.cpu().numpy()[:n_sub], neg.cpu().numpy()[:n_sub], n_sub
@@ -261,13 +263,14 @@ def extract_fingerprint(audio: DecodedAudio, config: FingerprintConfig | None = 
 def extract_fingerprint_batch(clips: list[DecodedAudio],
                               config: FingerprintConfig | None = None,
                               pad_batch_to: int = 0, n_sub_cap: int = 0,
-                              device: torch.device | str = "cpu"
+                              device: torch.device | str = DEFAULT_DEVICE
                               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """All clips in one padded dispatch on ``device``.  Returns (pos, neg,
     n_sub) with shapes ``[B, S_max, pairs]`` / ``[B]``; invalid
     subfingerprints are zeroed.  ``pad_batch_to``/``n_sub_cap`` pin the
     shapes as in the reference."""
     config = config or FingerprintConfig()
+    device = resolve_device(device, "extract_fingerprint_batch")
     n_subs = np.array([config.num_subfingerprints(c.file_frames, c.proc_frames)
                        for c in clips], dtype=np.int32)
     if n_sub_cap:
@@ -289,7 +292,6 @@ def extract_fingerprint_batch(clips: list[DecodedAudio],
         batch[i, :t] = c.samples[:t]
     n_subs_pad = np.zeros(b_pad, np.int32)
     n_subs_pad[:b_out] = n_subs
-    device = torch.device(device)
     pos, neg = extract_fingerprint_padded(
         torch.from_numpy(batch).to(device), torch.from_numpy(n_subs_pad), config,
         n_rows)

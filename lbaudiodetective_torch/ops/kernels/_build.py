@@ -115,13 +115,13 @@ def load_library(flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
             lib.lbad_fused_rows_smem_bytes.argtypes = [i]
             lib.lbad_fused_rows_smem_bytes.restype = i
             lib.lbad_band_rows.argtypes = [p, i, ll, p, i, i, i, i, i, i, p, p, p, p, p,
-                                           p, p, f, p, p]
+                                           p, f, p, p]
             lib.lbad_band_rows.restype = i
             lib.lbad_band_rows_smem_bytes.argtypes = [i, i, i, i]
             lib.lbad_band_rows_smem_bytes.restype = ll
             lib.lbad_band_rows_smem_limit.argtypes = []
             lib.lbad_band_rows_smem_limit.restype = ll
-            lib.lbad_match_packed.argtypes = [p, p, p, i, i, p, p, p, ll, i, i, i, i,
+            lib.lbad_match_packed.argtypes = [p, p, p, i, i, p, p, p, ll, i, i, i, i, i, i,
                                               p, p]
             lib.lbad_match_packed.restype = i
             lib.lbad_match_packed_smem_bytes.argtypes = [i, i, i, i, i]

@@ -11,8 +11,11 @@ One hand-written kernel, ``csrc/band_rows.cu``, ports three TPU kernels of
 - ``fused_rows_v2.py::fused_band_rows_v3`` with ``fuse_haar`` at the frame
   geometries ``csrc/fused_rows.cu`` does not take: :func:`fused_band_rows_v3`.
 
-Window starts are ``FingerprintConfig.row_starts`` (a float64 floor on the
-host), sent to the device as an int32 table.  On a CUDA tensor each wrapper
+The kernel runs stage 2 on the tensor cores in 3xTF32 (``csrc/dft_stage2.cuh``,
+as ``csrc/fused_rows.cu`` does) with the signal's level taken out of residue
+0; it is held to the plain version evaluated in float64.  Window starts are
+``FingerprintConfig.row_starts`` (a float64 floor on the host), sent to the
+device as an int32 table.  On a CUDA tensor each wrapper
 launches the kernel or raises; on a CPU tensor it runs the plain version
 (:func:`band_rows_plain`: window gather + matrix DFT band energies, + Haar
 products), which nothing on a CUDA path calls.  Each wrapper counts its own
@@ -29,7 +32,9 @@ import torch.nn.functional as F
 
 from lbaudiodetective_torch.config import FingerprintConfig
 from lbaudiodetective_torch.ops import spectral
-from lbaudiodetective_torch.ops.constants import STAGE1, constants_to_tensors, haar_matrix, kernel_constants
+from lbaudiodetective_torch.ops.constants import (
+    STAGE1, constants_to_tensors, haar_matrix, kernel_constants, projection_passes,
+    stage2_fragments)
 from lbaudiodetective_torch.ops.haar import haar_2d
 
 #: The one window the TPU kernels run at: 16 rows of 128 lanes.
@@ -38,13 +43,15 @@ _LANE = 128
 
 
 def band_rows_arrays(config: FingerprintConfig, haar: bool) -> dict[str, np.ndarray]:
-    """NumPy constants of the kernel: the stage matrices and the permuted
-    band projection of ``kernel_constants`` (t_re/t_im ``[16, 128, k_max]``,
-    proj_perm rows ``r * k_max + slot``), and with ``haar`` the frame's Haar
-    matrices (``h_rows`` ``[rpf, rpf]``, ``h_cols_t`` = H_bands transposed)."""
-    c16, s16, t_re, t_im, proj_perm, _ = kernel_constants(config)
-    arrays = {"c16": c16, "s16": s16, "t_re": t_re, "t_im": t_im,
-              "proj_perm": proj_perm}
+    """NumPy constants of the kernel, from ``kernel_constants``: the stage-1
+    matrices, the stage-2 twiddles split into TF32 in fragment order
+    (``t2_frag``, ``stage2_fragments``), the permuted band projection in
+    passes of 48 slots (``proj_pass``, ``projection_passes``), and with
+    ``haar`` the frame's Haar matrices (``h_rows`` ``[rpf, rpf]``,
+    ``h_cols_t`` = H_bands transposed)."""
+    c16, s16, t_re, t_im, proj_perm, k_max = kernel_constants(config)
+    arrays = {"c16": c16, "s16": s16, "t2_frag": stage2_fragments(t_re, t_im),
+              "proj_pass": projection_passes(proj_perm, k_max)}
     if haar:
         arrays["h_rows"] = haar_matrix(config.rows_per_frame)
         arrays["h_cols_t"] = np.ascontiguousarray(haar_matrix(config.pitch_step_count).T)
@@ -128,7 +135,9 @@ def band_rows_plain(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
                     coeffs: bool = False) -> torch.Tensor:
     """Plain version: gather the windows at ``config.row_starts`` (zero past
     T), two-stage matrix DFT band energies (``spectral.band_energies``) and,
-    with ``coeffs``, the per-frame 2-D Haar products."""
+    with ``coeffs``, the per-frame 2-D Haar products, all in ``audio``'s
+    float type: float64 audio gives the exact evaluation the kernel is held
+    to."""
     b = audio.shape[0]
     rpf, bands = config.rows_per_frame, config.pitch_step_count
     starts = config.row_starts(n_rows)
@@ -144,20 +153,29 @@ def band_rows_plain(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
 
 def _band_rows(wrapper, audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
                coeffs: bool, consts: dict[str, torch.Tensor] | None) -> torch.Tensor:
-    """Launch ``csrc/band_rows.cu`` for ``wrapper`` (whose count it raises),
-    or run the plain version on a CPU tensor."""
+    """Launch ``csrc/band_rows.cu`` for ``wrapper``, or run the plain
+    version on a CPU tensor."""
     _check(audio, config, n_rows)
     if audio.device.type == "cpu":
         return band_rows_plain(audio, config, n_rows, coeffs)
     if audio.device.type != "cuda":
         raise NotImplementedError(f"no band-rows kernel for device {audio.device}")
-    from lbaudiodetective_torch.ops.kernels._build import check, load_library
-
-    lib = load_library()
     x = audio.contiguous()
     if consts is None:
         consts = _device_constants(config, coeffs, str(x.device))
-    keys = ("c16", "s16", "t_re", "t_im", "proj_perm") + (
+    return launch(wrapper, x, config, n_rows, coeffs, consts, kernel_constants(config)[5])
+
+
+def launch(wrapper, x: torch.Tensor, config: FingerprintConfig, n_rows: int, coeffs: bool,
+           consts: dict[str, torch.Tensor], k_max: int) -> torch.Tensor:
+    """One launch of ``csrc/band_rows.cu`` on the contiguous CUDA audio ``x``
+    with the constant tensors ``consts`` (``band_rows_arrays``: stage 2 and
+    the projection in passes of 48 of ``k_max`` slots a residue), counted
+    in ``wrapper.launches``."""
+    from lbaudiodetective_torch.ops.kernels._build import check, load_library
+
+    lib = load_library()
+    keys = ("c16", "s16", "t2_frag", "proj_pass") + (
         ("h_rows", "h_cols_t") if coeffs else ())
     for k in keys:
         t = consts[k]
@@ -169,18 +187,16 @@ def _band_rows(wrapper, audio: torch.Tensor, config: FingerprintConfig, n_rows: 
     out = torch.empty((batch, n_rows, bands), dtype=torch.float32, device=x.device)
     if batch == 0:
         return out
-    k_max = consts["t_re"].shape[2]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         check(lib.lbad_band_rows(
             x.data_ptr(), batch, x.shape[1], starts.data_ptr(), n_rows,
             plan["tile_rows"], plan["sub"], bands, k_max, plan["span_pad"],
             consts["c16"].data_ptr(), consts["s16"].data_ptr(),
-            consts["t_re"].data_ptr(), consts["t_im"].data_ptr(),
-            consts["proj_perm"].data_ptr(),
+            consts["t2_frag"].data_ptr(), consts["proj_pass"].data_ptr(),
             consts["h_rows"].data_ptr() if coeffs else None,
             consts["h_cols_t"].data_ptr() if coeffs else None,
-            1.0 / config.spectrum_scale_divisor, out.data_ptr(), stream), wrapper.__name__)
+            1.0 / config.spectrum_scale_divisor, out.data_ptr(), stream), "band_rows")
     wrapper.launches += 1
     return out
 

@@ -51,9 +51,10 @@ def rows_arrays(config: FingerprintConfig) -> dict[str, np.ndarray]:
     """NumPy constants of the kernel and of its plain version; ``t2_frag``
     holds the stage-2 twiddles split into TF32 hi and lo in the kernel's
     fragment order (``stage2_fragments``)."""
-    c16, s16, t2a, _t2b, proj_r, k_max, perm, h_cols_t = v2_constants(config, True)
+    c16, s16, _t2a, _t2b, proj_r, _, perm, h_cols_t = v2_constants(config, True)
+    _, _, t_re, t_im, _, _ = kernel_constants(config)
     w1, w2, proj_perm, _ = conv_constants(config)
-    return {"c16": c16, "s16": s16, "t2_frag": stage2_fragments(t2a, k_max),
+    return {"c16": c16, "s16": s16, "t2_frag": stage2_fragments(t_re, t_im),
             "proj_r": proj_r, "perm": perm,
             "h_cols_t": h_cols_t, "conv_w1": w1, "conv_w2": w2,
             "proj_perm": proj_perm,

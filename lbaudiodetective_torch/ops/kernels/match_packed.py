@@ -8,10 +8,13 @@ uint32 planes held as int32 with the same bits (torch has no uint32 shifts
 on the CPU and no popcount op).  Only the first ``mask_pairs`` pairs of
 each plane are compared (quirk Q11).  On a CUDA tensor the hand-written
 kernel ``csrc/match_packed.cu`` runs; on a CPU tensor the plain version
-below.
+below.  The kernel reads each library entry once a launch, whatever the
+number of queries; its scores are bit-equal to the plain version's.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -20,7 +23,14 @@ from lbaudiodetective_torch.ops.match import _both_orientation_scores
 
 #: Shared memory a block may opt in to on the H100 (sm_90), in bytes.
 SMEM_LIMIT = 232448
-MAX_WARPS = 8
+#: Shared memory a CTA may take for two, or four, to share an SM (228 KB an
+#: SM, 1 KB of it reserved a block).
+SMEM_TWO_CTAS = 115712
+SMEM_FOUR_CTAS = 57344
+#: Library entries a chunk of the kernel's walk: at most, and at least while
+#: every query of a launch fits in one CTA.
+CHUNK_ENTRIES = 64
+MIN_CHUNK_ENTRIES = 16
 
 
 def prefix_mask_words(mask_pairs: int, w: int) -> np.ndarray:
@@ -76,6 +86,48 @@ def match_one_vs_many_fused_plain(q_pos_w: torch.Tensor, q_neg_w: torch.Tensor,
     return out
 
 
+def launch_plan(smem_bytes, b: int, sq: int, sl: int, w: int) -> tuple[int, int, int]:
+    """``(queries a CTA, entries a chunk, CTAs an SM)`` of a kernel launch.
+    Every query in one CTA with the largest chunks of ``MIN_CHUNK_ENTRIES``
+    to ``CHUNK_ENTRIES`` entries that fit in a quarter of an SM's shared
+    memory (four CTAs an SM, as in a search's coarse pass), else in half;
+    where the queries do not fit so, groups of as many queries as fit
+    beside the largest chunk of up to ``MIN_CHUNK_ENTRIES`` entries, two
+    CTAs an SM, else one.  ``smem_bytes(bg, sq, e, sl, w)`` is the kernel's
+    layout (``lbad_match_packed_smem_bytes``).  Raises ``ValueError``
+    naming the limit when one query and one entry do not fit."""
+    b = max(b, 1)
+    for ctas, budget in ((4, SMEM_FOUR_CTAS), (2, SMEM_TWO_CTAS)):
+        e = CHUNK_ENTRIES
+        while e >= MIN_CHUNK_ENTRIES and smem_bytes(b, sq, e, sl, w) > budget:
+            e //= 2
+        if e >= MIN_CHUNK_ENTRIES:
+            return b, e, ctas
+    for ctas, budget in ((2, SMEM_TWO_CTAS), (1, SMEM_LIMIT)):
+        e = MIN_CHUNK_ENTRIES
+        while e >= 1 and smem_bytes(1, sq, e, sl, w) > budget:
+            e //= 2
+        if e >= 1:
+            bg, hi = 1, b
+            while bg < hi:                          # the most queries that fit
+                mid = (bg + hi + 1) // 2
+                if smem_bytes(mid, sq, e, sl, w) <= budget:
+                    bg = mid
+                else:
+                    hi = mid - 1
+            return bg, e, ctas
+    raise ValueError(f"Sq={sq}, Sl={sl}, W={w} needs {smem_bytes(1, sq, 1, sl, w)} bytes of "
+                     f"shared memory per block; the limit is {SMEM_LIMIT}")
+
+
+@lru_cache(maxsize=256)
+def _device_plan(b: int, sq: int, sl: int, w: int) -> tuple[int, int, int]:
+    """``launch_plan`` with the kernel's own layout, once per shape."""
+    from lbaudiodetective_torch.ops.kernels._build import load_library
+
+    return launch_plan(load_library().lbad_match_packed_smem_bytes, b, sq, sl, w)
+
+
 def _check(q_pos_w, q_neg_w, n_query, lib_pos_w, lib_neg_w, n_lib) -> None:
     words = (q_pos_w, q_neg_w, lib_pos_w, lib_neg_w)
     if any(t.dtype != torch.int32 for t in (*words, n_query, n_lib)):
@@ -117,12 +169,7 @@ def match_one_vs_many_fused(q_pos_w: torch.Tensor, q_neg_w: torch.Tensor,
     (b, sq, w), (l, sl, _) = q_pos_w.shape, lib_pos_w.shape
     if b > 65535:
         raise ValueError(f"at most 65535 queries per launch, got {b}")
-    q_bytes = lib.lbad_match_packed_smem_bytes(sq, sl, w, mask_pairs, 0)
-    warp_bytes = lib.lbad_match_packed_smem_bytes(0, sl, w, mask_pairs, 1)
-    warps = min(MAX_WARPS, (SMEM_LIMIT - q_bytes) // max(warp_bytes, 1))
-    if warps < 1:
-        raise ValueError(f"Sq={sq}, Sl={sl}, W={w} needs {q_bytes + warp_bytes} bytes "
-                         f"of shared memory per block; the limit is {SMEM_LIMIT}")
+    bg, e, ctas = _device_plan(b, sq, sl, w)
     out = torch.empty((b, l), dtype=torch.float32, device=dev)
     if b == 0 or l == 0:
         return out
@@ -131,7 +178,7 @@ def match_one_vs_many_fused(q_pos_w: torch.Tensor, q_neg_w: torch.Tensor,
     with torch.cuda.device(dev):
         check(lib.lbad_match_packed(t[0].data_ptr(), t[1].data_ptr(), t[2].data_ptr(), b, sq,
                                     t[3].data_ptr(), t[4].data_ptr(), t[5].data_ptr(), l, sl,
-                                    w, mask_pairs, warps, out.data_ptr(), stream),
+                                    w, mask_pairs, bg, e, ctas, out.data_ptr(), stream),
               "match_one_vs_many_fused")
     match_one_vs_many_fused.launches += 1
     return out

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
+
 
 def _pair_mask(pairs: int, comparison_range: int, subfingerprint_length: int) -> np.ndarray:
     """Quirk Q11: ``comparison_range`` caps *booleans* compared (0 -> all);
@@ -120,18 +122,18 @@ def match_fingerprints(fp1: tuple[np.ndarray, np.ndarray],
                        fp2: tuple[np.ndarray, np.ndarray],
                        comparison_range: int = 0,
                        subfingerprint_length: int = 200,
-                       device: torch.device | str = "cpu") -> float:
+                       device: torch.device | str = DEFAULT_DEVICE) -> float:
     """One-vs-one match score between two (pos, neg) uint8 fingerprints,
     computed on ``device``."""
     from lbaudiodetective_torch.ops.extract import bucket_subfingerprints
 
+    device = resolve_device(device, "match_fingerprints")
     (pos1, neg1), (pos2, neg2) = fp1, fp2
     n1, n2 = pos1.shape[0], pos2.shape[0]
     if n1 == 0 or n2 == 0:
         return 0.0
     s = bucket_subfingerprints(max(n1, n2))
     pairs = pos1.shape[1]
-    device = torch.device(device)
 
     def pad(a):
         out = np.zeros((s, pairs), dtype=np.uint8)

@@ -16,6 +16,8 @@ CUDA, its plain version on the CPU.  Scores equal the unpacked matcher's.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -39,6 +41,7 @@ def pack_bits_device(plane: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
+@lru_cache(maxsize=64)
 def _mask_pairs(pairs: int, comparison_range: int, subfingerprint_length: int) -> int:
     """Leading pairs compared under quirk Q11."""
     return int(_pair_mask(pairs, comparison_range, subfingerprint_length).sum())

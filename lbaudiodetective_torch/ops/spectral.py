@@ -58,7 +58,8 @@ def band_energies(windows: torch.Tensor, config: FingerprintConfig) -> torch.Ten
     """``[..., window] -> [..., bands]`` band energies.
 
     Bins strictly inside (0, window/2) come from the two-stage matrix DFT
-    (``rdft_bins``); otherwise from the full packed rfft."""
+    (``rdft_bins``); otherwise from the full packed rfft.  Runs in the
+    windows' float type."""
     ranges = config.band_bin_ranges
     lo, hi = int(ranges[:, 0].min()), int(ranges[:, 1].max())
     n = windows.shape[-1]
@@ -68,7 +69,7 @@ def band_energies(windows: torch.Tensor, config: FingerprintConfig) -> torch.Ten
     else:
         re, im = packed_spectrum(windows)
     v = _q5_energy(re, im, config.spectrum_scale_divisor)
-    return torch.matmul(v, _projection(config, interior, str(windows.device)))
+    return torch.matmul(v, _projection(config, interior, str(windows.device)).to(v.dtype))
 
 
 @lru_cache(maxsize=16)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
 from lbaudiodetective_torch.models.fingerprint import Fingerprint
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
@@ -89,14 +90,12 @@ class StreamingExtractor:
     batch: int
     chunk_size: int = 1024
     config: FingerprintConfig = dataclasses.field(default_factory=FingerprintConfig)
-    device: torch.device | str = "cpu"
+    device: torch.device | str = DEFAULT_DEVICE
     collect_host: bool = True
 
     def __post_init__(self):
         cfg = self.config
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("StreamingExtractor(device='cuda'): CUDA is not available")
+        self.device = resolve_device(self.device, "StreamingExtractor")
         self.hop = cfg.hop_in_processing_samples
         self.r_max = int(np.ceil(self.chunk_size / self.hop)) + 1
         self.f_max = max(1, (self.r_max + cfg.rows_per_frame - 1) // cfg.rows_per_frame + 1)
@@ -268,12 +267,10 @@ class StreamingDetective:
     the lifecycle methods run elsewhere; a lock orders them."""
 
     def __init__(self, config: FingerprintConfig | None = None,
-                 chunk_size: int = 1024, device: torch.device | str = "cpu"):
+                 chunk_size: int = 1024, device: torch.device | str = DEFAULT_DEVICE):
         self.config = config or FingerprintConfig()
         self.chunk_size = chunk_size
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("StreamingDetective(device='cuda'): CUDA is not available")
+        self.device = resolve_device(device, "StreamingDetective")
         self._extractor: StreamingExtractor | None = None
         self._callback = None
         self._max_subfingerprints = 0

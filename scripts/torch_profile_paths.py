@@ -1,12 +1,16 @@
 """Where the time goes in the port's 256-stream streaming paths (aligned chunk
-1024, conv chunk 512, fractional-hop gather chunk 1024, 10 s a stream) and its
-parity and fractional-hop batches of 256 ten-second clips: walls, device busy from
+1024, conv chunk 512, fractional-hop gather chunk 1024, 10 s a stream), its
+parity and fractional-hop batches of 256 ten-second clips, and its library
+path (``FingerprintLibrary.match`` and ``search`` over 1,048,576 packed
+entries of 31-80 rows built from a seed): walls, device busy from
 torch.profiler (kernel and memcpy rows only) and host hot spots from
 cProfile.  Run from the repo root on one GPU:
 
-    python scripts/torch_profile_paths.py [cuda|cpu] [batch]
+    python scripts/torch_profile_paths.py [cuda|cpu] [batch] [streams,batches,library]
 
-The card's name and power limit are printed first; every number is for it."""
+The third argument picks the parts (all three by default); on the CPU the
+library has 4,096 entries.  The card's name and power limit are printed
+first; every number is for it."""
 import cProfile
 import io
 import pstats
@@ -26,6 +30,7 @@ import chip_smoke as cs  # noqa: E402
 
 dev = torch.device(sys.argv[1] if len(sys.argv) > 1 else "cuda")
 B = int(sys.argv[2]) if len(sys.argv) > 2 else 256
+PARTS = (sys.argv[3] if len(sys.argv) > 3 else "streams,batches,library").split(",")
 cuda = dev.type == "cuda"
 sync = torch.cuda.synchronize if cuda else (lambda: None)
 torch.backends.cudnn.allow_tf32 = False
@@ -57,9 +62,21 @@ def host_profile(fn, top=16):
     return "\n".join(s.getvalue().splitlines()[:top + 12])
 
 
-for name, cfg, chunk in (("aligned", FingerprintConfig(), 1024),
-                         ("conv", FingerprintConfig(), 512),
-                         ("gather", FingerprintConfig(integer_hop=False), 1024)):
+def profile_device(name, fn):
+    """Wall, device busy and the top device rows of one profiled call."""
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    busy, lines = device_rows(prof)
+    print(f"[{name}] profiled wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / (wall * 1e3):.1f} %)\n{lines}", flush=True)
+
+
+STREAMS = (("aligned", FingerprintConfig(), 1024), ("conv", FingerprintConfig(), 512),
+           ("gather", FingerprintConfig(integer_hop=False), 1024))
+for name, cfg, chunk in STREAMS if "streams" in PARTS else ():
     steps = int(10 * cfg.processing_sample_rate) // chunk
     audio = cs.brown_noise(rng, B, steps * chunk)
     chunks = [np.ascontiguousarray(audio[:, s * chunk:(s + 1) * chunk]) for s in range(steps)]
@@ -82,20 +99,14 @@ for name, cfg, chunk in (("aligned", FingerprintConfig(), 1024),
               f"RTF {B * steps * chunk / cfg.processing_sample_rate / wall:.1f}", flush=True)
     ext.reset()
     sync()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        sync()
-        wall = time.perf_counter() - t0
-    busy, lines = device_rows(prof)
-    print(f"[{name}] profiled wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / (wall * 1e3):.1f} %)\n{lines}", flush=True)
+    profile_device(name, run)
     ext.reset()
     sync()
     print(host_profile(run), flush=True)
 
-for name, cfg in (("parity batch", FingerprintConfig()),
-                  ("fractional batch", FingerprintConfig(integer_hop=False))):
+BATCHES = (("parity batch", FingerprintConfig()),
+           ("fractional batch", FingerprintConfig(integer_hop=False)))
+for name, cfg in BATCHES if "batches" in PARTS else ():
     det = AudioDetective(cfg, device=dev)
     clips = cs.synth_clips(rng, cfg, B, 10.0)
     det.process_decoded_batch(clips)
@@ -107,12 +118,32 @@ for name, cfg in (("parity batch", FingerprintConfig()),
         walls.append(time.perf_counter() - t0)
     print(f"[{name}] walls {[round(w * 1e3, 3) for w in walls]} ms, median "
           f"{np.median(walls) * 1e3:.3f} ms, {B / np.median(walls):.1f} clips/s", flush=True)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        det.process_decoded_batch(clips)
-        sync()
-        wall = time.perf_counter() - t0
-    busy, lines = device_rows(prof)
-    print(f"[{name}] profiled wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms\n{lines}",
-          flush=True)
+    profile_device(name, lambda: det.process_decoded_batch(clips))
     print(host_profile(lambda: det.process_decoded_batch(clips)), flush=True)
+
+if "library" in PARTS:
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n_lib = 1 << 20 if cuda else 4096
+    lib = FingerprintLibrary(*cs.random_words(gen, dev, n_lib, cs.BIG_S, 100), 100,
+                             FingerprintConfig())
+    pw = lib.pos_words[3, :int(lib.counts[3])].cpu().numpy().view(np.uint32)
+    nw = lib.neg_words[3, :int(lib.counts[3])].cpu().numpy().view(np.uint32)
+    full = Fingerprint.from_packed(pw, nw, 100)
+    query = Fingerprint(full.pos[2:], full.neg[2:])      # a crop of entry 3
+    for name, fn in ((f"library match 1 x {n_lib:,}", lambda: lib.match(query)),
+                     (f"library search 1 x {n_lib:,}", lambda: lib.search(query))):
+        fn()
+        sync()
+        walls = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        print(f"[{name}] walls {[round(w * 1e3, 3) for w in walls]} ms, median "
+              f"{np.median(walls) * 1e3:.3f} ms", flush=True)
+        profile_device(name, fn)
+        print(host_profile(fn), flush=True)

@@ -31,12 +31,35 @@ H100_SMEM_BYTES = 232448
 def band_rows_layout(sub: int, bands: int, span_pad: int, frame_floats: int) -> int:
     """``csrc/band_rows.cu``'s shared-memory layout in bytes, restated for
     the CPU tests of ``band_rows.tile_plan``; tests/test_torch_cuda.py holds
-    it to the kernel's own ``lbad_band_rows_smem_bytes``.  Regions: audio
-    span, stage-1 / V (2 x 128 x 33), twiddles (2 x 32 x 48), window offsets
-    (128), the frame; -1 past 128 windows or 16 x 256 (window, band) sums."""
-    if not 1 <= sub <= 128 or bands < 1 or sub * bands > 16 * 256:
+    it to the kernel's own ``lbad_band_rows_smem_bytes``.  Regions, in
+    floats: the audio span; G, 2 x 16 x 32 a slab of 16 windows; two chunks'
+    twiddle fragments (2 x 6144); the rows or the frame (the larger of
+    frame_floats and sub x bands, rounded up to 4); a pass's projection
+    weights (48 x bands); the stage-1 matrices (2 x 16 x 16); residue-0
+    offsets and window offsets (128 each).  -1 past 128 windows, or for a
+    span_pad below one window or not a multiple of 4."""
+    if not 1 <= sub <= 128 or bands < 1 or span_pad < 2048 or span_pad % 4 or frame_floats < 0:
         return -1
-    return 4 * (span_pad + 2 * 128 * 33 + 2 * 32 * 48 + 128 + frame_floats)
+    rows = -(-max(frame_floats, sub * bands) // 4) * 4
+    return 4 * (span_pad + -(-sub // 16) * 2 * 16 * 32 + 2 * 6144 + rows + 48 * bands
+                + 2 * 16 * 16 + 2 * 128)
+
+
+def match_packed_layout(bg: int, sq: int, e: int, sl: int, w: int) -> int:
+    """``csrc/match_packed.cu``'s shared-memory layout in bytes, restated
+    for the CPU test of ``match_packed.launch_plan``; tests/test_torch_cuda.py
+    holds it to the kernel's own ``lbad_match_packed_smem_bytes``.  Regions,
+    in words rounded up to 4: the query group's pos and neg rows, their
+    inv_q, counts and overlap flags; two chunk buffers of pos and neg entry
+    rows, inv_lib, counts and overlap flags; the raw counts of two chunks;
+    each (query, entry)'s best score and the prefix sum; the reciprocal
+    table (32 w + 1)."""
+    def r4(n):
+        return -(-n // 4) * 4
+
+    query = 2 * r4(bg * sq * w) + r4(bg * sq) + r4(2 * bg)
+    chunk = 2 * r4(e * sl * w) + r4(e * sl) + r4(2 * e)
+    return 4 * (query + 2 * chunk + r4(2 * e) + r4(bg * e) + r4(bg * e + 1) + r4(32 * w + 1))
 
 
 def brown_noise(seed: int, batch: int, n: int) -> np.ndarray:

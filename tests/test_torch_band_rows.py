@@ -99,14 +99,18 @@ def test_wrappers_raise_where_the_jax_kernels_do():
 
 
 def test_constants_equal_the_jax_arrays():
+    """The kernel's constants derive from the JAX package's: its twiddles
+    split into TF32 in fragment order, its projection in passes of 48
+    slots, its Haar matrices."""
     from lbaudiodetective_tpu.ops import haar
     from lbaudiodetective_tpu.ops.pallas.fused_rows import _kernel_constants
 
     for kw in (*FRACTIONAL.values(), *GEOMETRIES.values(), {}):
         cfg = FingerprintConfig(**kw)
-        c16, s16, t_re, t_im, proj_perm, _ = _kernel_constants(jax_config(cfg))
-        expected = {"c16": c16, "s16": s16, "t_re": t_re, "t_im": t_im,
-                    "proj_perm": proj_perm, "h_rows": haar.haar_matrix(cfg.rows_per_frame),
+        c16, s16, t_re, t_im, proj_perm, k_max = _kernel_constants(jax_config(cfg))
+        expected = {"c16": c16, "s16": s16, "t2_frag": port.stage2_fragments(t_re, t_im),
+                    "proj_pass": port.projection_passes(proj_perm, k_max),
+                    "h_rows": haar.haar_matrix(cfg.rows_per_frame),
                     "h_cols_t": haar.haar_matrix(cfg.pitch_step_count).T}
         arrays = band_rows.band_rows_arrays(cfg, haar=True)
         assert sorted(arrays) == sorted(expected)
@@ -115,6 +119,24 @@ def test_constants_equal_the_jax_arrays():
     assert port.kernel_constants(FingerprintConfig(integer_hop=False))[5] == 43
     rate_8000 = FingerprintConfig(processing_sample_rate=8000.0, integer_hop=False)
     assert port.kernel_constants(rate_8000)[5] == 31
+
+
+def test_plain_version_in_float64_within_the_bar_of_jax():
+    """The plain version runs in float64 on float64 audio (the evaluation
+    the CUDA kernel is held to) and stays within the kernel's bar (rtol
+    5e-4, atol 3e-6 * max) of the JAX package's fused_band_rows in interpret
+    mode at the oracle-mode fractional hop."""
+    import jax.numpy as jnp
+
+    from lbaudiodetective_tpu.ops.pallas.fused_rows import fused_band_rows as jax_rows
+
+    cfg, n_rows, audio = _inputs(FRACTIONAL["oracle_mode"], 64)
+    got = band_rows.band_rows_plain(torch.from_numpy(audio).double(), cfg, n_rows)
+    assert got.dtype == torch.float64 and got.shape == (2, n_rows, cfg.pitch_step_count)
+    exp = np.asarray(jax_rows(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True))
+    np.testing.assert_allclose(got.numpy(), exp, rtol=5e-4, atol=3e-6 * float(np.abs(exp).max()))
+    coeffs = band_rows.band_rows_plain(torch.from_numpy(audio).double(), cfg, n_rows, True)
+    assert coeffs.dtype == torch.float64
 
 
 def test_tile_plan_splits_large_spans_and_names_the_limit():

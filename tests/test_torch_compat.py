@@ -180,7 +180,7 @@ def test_frame_functions_equal_jax():
 
 
 def test_streaming_names_drive_the_port():
-    det = StreamingDetective(chunk_size=1024)
+    det = StreamingDetective(chunk_size=1024, device="cpu")
     done = []
     compat.LBAudioDetectiveProcess(det, 1, done.append)
     rng = np.random.default_rng(80)
@@ -214,7 +214,7 @@ def test_compat_and_streaming_import_no_jax():
         "compat.LBAudioDetectiveFingerprintAddSubfingerprint(c, np.ones(4, np.uint8))\n"
         "d = compat.LBAudioDetectiveNew(device='cpu')\n"
         "compat.LBAudioDetectiveSetNumberOfPitchSteps(d, 16)\n"
-        "ext = StreamingExtractor(2, 1024, FingerprintConfig(integer_hop=False))\n"
+        "ext = StreamingExtractor(2, 1024, FingerprintConfig(integer_hop=False), 'cpu')\n"
         "x = np.cumsum(np.random.default_rng(0).standard_normal((2, 4096)), 1) * 0.005\n"
         "[ext.feed(x[:, i:i + 1024].astype(np.float32)) for i in range(0, 4096, 1024)]\n"
         "assert ext.fingerprints()[0].num_subfingerprints == 2\n"

@@ -82,7 +82,8 @@ def test_jax_built_constants_give_identical_output(cfg_name):
     w1, w2, proj_perm, _ = spectral._conv_constants(jax_config(cfg))
     # The kernel reads t2a's twiddles split into TF32 and in fragment order,
     # which the port derives from the JAX package's t2a.
-    t2_frag = port.stage2_fragments(t2a, port.kernel_constants(cfg)[5])
+    k_max = port.kernel_constants(cfg)[5]
+    t2_frag = port.stage2_fragments(t2a[..., :k_max], t2a[..., 64:64 + k_max])
     jax_arrays = {"c16": c16, "s16": s16, "t2_frag": t2_frag, "proj_r": proj_r,
                   "perm": perm, "h_cols_t": h_cols_t, "conv_w1": w1, "conv_w2": w2,
                   "proj_perm": proj_perm, "h_rows": haar.haar_matrix(128),
@@ -155,7 +156,7 @@ def test_stage2_fragments_give_the_complex_product():
     rounding of G)."""
     cfg = CONFIGS["parity"]
     _, _, t2a, _, _, k_max, _, _ = port.v2_constants(cfg, True)
-    frag = port.stage2_fragments(t2a, k_max)
+    frag = port.stage2_fragments(t2a[..., :k_max], t2a[..., 64:64 + k_max])
     r, chunk, warp = 5, 2, 3
     rng = np.random.default_rng(13)
     g = (rng.standard_normal((128, 32)) + 1j * rng.standard_normal((128, 32))) * 10
@@ -174,7 +175,7 @@ def test_stage2_fragments_give_the_complex_product():
                           g32[part][row0, col + 4], g32[part][row0 + 8, col + 4]], axis=1)
             a[part] = port.tf32_split(v)
         for tile in range(6):
-            b = {part: frag[r, chunk, ks, tile, i] for i, part in enumerate(("re", "im"))}
+            b = {part: frag[r, 0, chunk, ks, tile, i] for i, part in enumerate(("re", "im"))}
             terms = (("re", "re", "re", 1), ("re", "im", "im", -1),
                      ("im", "re", "im", 1), ("im", "im", "re", 1))
             for big in (False, True):
@@ -193,6 +194,29 @@ def test_stage2_fragments_give_the_complex_product():
     assert not got[:, k_max:].any()
     err = np.abs(got[:, :k_max] - exp).max()
     assert err <= 1e-6 * np.abs(exp).max(), err
+
+
+def test_stage2_fragments_in_passes_of_48_slots():
+    """Above 48 slots a residue, stage 2 runs passes of 48: pass p holds
+    slots 48 p .. 48 p + 47 in the one-pass layout, zero past k_max; the
+    projection is padded the same way."""
+    rng = np.random.default_rng(14)
+    k_max, bands = 100, 16
+    t_re, t_im = (rng.standard_normal((16, 128, k_max)).astype(np.float32) for _ in "ri")
+    frag = port.stage2_fragments(t_re, t_im)
+    assert frag.shape == (16, 3, 4, 4, 6, 2, 32, 4) and port.stage2_passes(k_max) == 3
+    pad = np.zeros((16, 128, 144), np.float32)
+    for p in range(3):
+        re, im = pad.copy(), pad.copy()
+        re[..., :k_max], im[..., :k_max] = t_re, t_im
+        one = port.stage2_fragments(re[..., 48 * p:48 * p + 48], im[..., 48 * p:48 * p + 48])
+        assert np.array_equal(frag[:, p], one[:, 0])
+    assert not frag[:, 2, :, :, 1:].any()           # slot tiles past slot 100 of the last pass
+    proj = rng.standard_normal((16 * k_max, bands)).astype(np.float32)
+    passes = port.projection_passes(proj, k_max)
+    assert passes.shape == (16, 3, 48, bands)
+    flat = passes.reshape(16, 144, bands)
+    assert np.array_equal(flat[:, :k_max].reshape(-1, bands), proj) and not flat[:, k_max:].any()
 
 
 def test_residue0_twiddles_cancel_a_constant():

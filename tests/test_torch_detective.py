@@ -89,7 +89,7 @@ def test_match_against_library_equals_jax_on_ragged_entries(comparison_range):
 
 
 def test_detective_preferences_replace_config():
-    det = AudioDetective()
+    det = AudioDetective(device="cpu")
     assert (det.processing_sample_rate, det.window_size, det.analysis_stride,
             det.number_of_pitch_steps, det.subfingerprint_length) == (5512.0, 2048, 64, 32, 200)
     det.analysis_stride = 32
@@ -119,7 +119,7 @@ assert det.compare_fingerprints(fp, fp) == 1.0
 import lbaudiodetective_torch.__main__ as cli
 from lbaudiodetective_torch.models.library import FingerprintLibrary
 assert lbaudiodetective_torch.FingerprintLibrary is FingerprintLibrary
-lib = FingerprintLibrary.from_fingerprints([fp, fp], cfg)
+lib = FingerprintLibrary.from_fingerprints([fp, fp], cfg, device='cpu')
 assert lib.identify(fp) == (0, 1.0)
 assert lib.search(fp, top_k=1, shortlist=1)[1][0] == 1.0
 cli.build_parser().parse_args(['identify', 'x.wav', '--library', 'l.npz'])

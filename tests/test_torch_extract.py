@@ -30,7 +30,7 @@ def test_extract_matches_jax_and_oracle(cfg_name, seconds):
 
     cfg = CONFIGS[cfg_name]
     clip = synth_clip(21, seconds, cfg)
-    pos, neg, n = extract_fingerprint(clip, cfg)
+    pos, neg, n = extract_fingerprint(clip, cfg, device="cpu")
     assert n > 0 and pos.shape == (n, 100) and pos.dtype == np.uint8
     assert not (pos & neg).any()
     jpos, jneg, jn = jax_extract(jax_clip(clip), jax_config(cfg))
@@ -44,16 +44,17 @@ def test_extract_matches_jax_and_oracle(cfg_name, seconds):
 def test_batch_equals_single_and_padding_is_zero():
     cfg = CONFIGS["parity"]
     clips = [synth_clip(30 + i, s, cfg) for i, s in enumerate((2.0, 3.0, 1.2))]
-    bpos, bneg, n_subs = extract_fingerprint_batch(clips, cfg)
+    bpos, bneg, n_subs = extract_fingerprint_batch(clips, cfg, device="cpu")
     assert bpos.shape == (3, 16, 100)
     for i, c in enumerate(clips):
-        pos, neg, n = extract_fingerprint(c, cfg)
+        pos, neg, n = extract_fingerprint(c, cfg, device="cpu")
         assert n == n_subs[i]
         np.testing.assert_array_equal(bpos[i, :n], pos)
         np.testing.assert_array_equal(bneg[i, :n], neg)
         assert bpos[i, n:].sum() == 0 and bneg[i, n:].sum() == 0
     # Static-shape serving form: padded batch and capped bucket.
-    ppos, pneg, pn = extract_fingerprint_batch(clips, cfg, pad_batch_to=4, n_sub_cap=9)
+    ppos, pneg, pn = extract_fingerprint_batch(clips, cfg, pad_batch_to=4, n_sub_cap=9,
+                                           device="cpu")
     assert ppos.shape == (3, 16, 100)
     np.testing.assert_array_equal(pn, np.minimum(n_subs, 9))
     for i in range(3):
@@ -65,15 +66,15 @@ def test_silence_extracts_all_zero_and_scores_zero():
     rate, file_rate = cfg.processing_sample_rate, cfg.file_sample_rate
     d = DecodedAudio(np.zeros(int(3.0 * rate), np.float32), rate,
                      int(3.0 * file_rate), file_rate)
-    pos, neg, n = extract_fingerprint(d, cfg)
+    pos, neg, n = extract_fingerprint(d, cfg, device="cpu")
     assert n > 0 and not pos.any() and not neg.any()
-    assert match_fingerprints((pos, neg), (pos, neg)) == 0.0
+    assert match_fingerprints((pos, neg), (pos, neg), device="cpu") == 0.0
 
 
 def test_short_clip_has_no_subfingerprints():
     cfg = CONFIGS["parity"]
     d = synth_clip(3, 0.2, cfg)
-    pos, neg, n = extract_fingerprint(d, cfg)
+    pos, neg, n = extract_fingerprint(d, cfg, device="cpu")
     assert n == 0 and pos.shape == (0, 100)
 
 
@@ -145,7 +146,7 @@ def test_every_config_extracts_against_jax_and_oracle(name):
     assert rows_impl(cfg, torch.device("cuda")) == cuda_route
     assert rows_impl(cfg, torch.device("cpu")) == cpu_route
     clip = synth_clip(27, 4.0, cfg)
-    pos, neg, n = extract_fingerprint(clip, cfg)
+    pos, neg, n = extract_fingerprint(clip, cfg, device="cpu")
     assert n > 0 and pos.shape == (n, cfg.num_wavelet_pairs)
     jpos, jneg, jn = jax_extract(jax_clip(clip), jax_config(cfg))
     assert jn == n
@@ -162,12 +163,37 @@ def test_every_config_extracts_against_jax_and_oracle(name):
     assert bit_agreement(rpos, rneg, opos, oneg) >= 0.999
 
 
+@pytest.mark.parametrize("route", ["default", "cuda_route"])
+def test_length_300_cpu_path_agrees_with_oracle_as_jax_does(route):
+    """subfingerprint_length=300 keeps 150 of 4096 coefficients a frame, so
+    float32 rounding flips the sign bits of near ties: on the seed-74 4 s
+    clip the JAX package's own CPU path agrees only 99.873 % with the NumPy
+    oracle, under the 99.9 % bar (the card's band-rows kernel is held to the
+    oracle there, in tests/test_torch_cuda.py).  The port's CPU path, by its
+    default route and by the kernel's plain version, does no worse."""
+    from lbaudiodetective_tpu.ops.extract import extract_fingerprint as jax_extract
+    from lbaudiodetective_tpu.oracle.pipeline import oracle_fingerprint
+
+    cfg = TABLE["length_300"]
+    clip = synth_clip(74, 4.0, cfg)
+    opos, oneg = oracle_fingerprint(jax_clip(clip), jax_config(cfg))
+    jpos, jneg, n = jax_extract(jax_clip(clip), jax_config(cfg))
+    jax_agree = bit_agreement(np.asarray(jpos)[:n], np.asarray(jneg)[:n], opos, oneg)
+    if route == "default":
+        pos, neg, pn = extract_fingerprint(clip, cfg, device="cpu")
+        assert pn == n
+    else:
+        pos, neg = _extract_with(clip, cfg, ROUTES["length_300"][0])
+    agree = bit_agreement(pos, neg, opos, oneg)
+    assert agree >= jax_agree >= 0.998, (agree, jax_agree)
+
+
 def test_fused_v2_route_matches_default():
     """``rows_impl="fused_v2"`` (the reference's other integer-hop kernel)
     gives the default path's bits at the parity config."""
     cfg = CONFIGS["parity"]
     clip = synth_clip(26, 3.0, cfg)
-    pos, neg, n = extract_fingerprint(clip, cfg)
+    pos, neg, n = extract_fingerprint(clip, cfg, device="cpu")
     vpos, vneg = _extract_with(clip, cfg, "fused_v2")
     assert bit_agreement(vpos, vneg, pos, neg) >= 0.999
 
@@ -181,7 +207,7 @@ def test_other_rows_paths_match_jax(cfg_kwargs):
 
     cfg = FingerprintConfig(**cfg_kwargs)
     clip = synth_clip(23, 4.0, cfg)
-    pos, neg, n = extract_fingerprint(clip, cfg)
+    pos, neg, n = extract_fingerprint(clip, cfg, device="cpu")
     jpos, jneg, jn = jax_extract(jax_clip(clip), jax_config(cfg))
     assert n == jn > 0
     assert bit_agreement(pos, neg, jpos[:n], jneg[:n]) >= 0.999

@@ -40,7 +40,7 @@ def make_library(cls, fps, cfg=None):
     """A library of ``cls`` (the port's or the JAX package's) of ``fps``."""
     if cls is JaxLibrary:
         return jax_library(fps, cfg)
-    return FingerprintLibrary.from_fingerprints(fps, cfg or FingerprintConfig())
+    return FingerprintLibrary.from_fingerprints(fps, cfg or FingerprintConfig(), device="cpu")
 
 
 def query_for(cls, fp):
@@ -76,7 +76,7 @@ def planted():
         pos = np.where(flips, 1 - birds[t].pos, birds[t].pos).astype(np.uint8)
         queries.append((f"{BIRDS[t]}_flip5", t,
                         Fingerprint(pos, (birds[t].neg * (1 - pos)).astype(np.uint8))))
-    lib = FingerprintLibrary.from_fingerprints(fps, FingerprintConfig())
+    lib = FingerprintLibrary.from_fingerprints(fps, FingerprintConfig(), device="cpu")
     return (lib, jax_library(fps), queries, lib.match_many([q for _, _, q in queries]))
 
 
@@ -89,7 +89,7 @@ def test_state_equals_jax_library(planted):
     np.testing.assert_array_equal(lib.counts.numpy(), np.asarray(jlib.counts))
     carried = FingerprintLibrary.from_arrays(
         np.asarray(jlib.pos_words), np.asarray(jlib.neg_words), np.asarray(jlib.counts),
-        jlib.pairs, FingerprintConfig())
+        jlib.pairs, FingerprintConfig(), device="cpu")
     assert torch.equal(carried.pos_words, lib.pos_words) and len(carried) == 512
     assert lib.device == torch.device("cpu")
 
@@ -138,7 +138,7 @@ def test_search_synthetic_recall_equals_jax():
     base_pos, base_neg, lib_pos, lib_neg = synthetic_library()
     fps = [Fingerprint(p, n) for p, n in zip(lib_pos, lib_neg)]
     query = Fingerprint(base_pos, base_neg)
-    lib = FingerprintLibrary.from_fingerprints(fps)
+    lib = FingerprintLibrary.from_fingerprints(fps, device="cpu")
     jlib = jax_library(fps)
     brute = lib.match(query)
     assert int(np.argmax(brute)) == 11
@@ -157,7 +157,7 @@ def test_search_ties_equal_jax():
     bases = [random_fp(rng, 30) for _ in range(5)]
     fps = [bases[i % 5] for i in range(40)]
     query = Fingerprint(bases[2].pos[2:], bases[2].neg[2:])
-    lib = FingerprintLibrary.from_fingerprints(fps)
+    lib = FingerprintLibrary.from_fingerprints(fps, device="cpu")
     jlib = jax_library(fps)
     for kw in (dict(shortlist=12, chunk=16), dict(shortlist=64)):
         idx, scores = lib.search(query, top_k=10, **kw)
@@ -199,7 +199,8 @@ def test_extend_equals_fresh():
                                    rtol=0, atol=1e-6)
         assert grown.extend([]) is grown
     with pytest.raises(ValueError, match="pair count"):
-        FingerprintLibrary.from_fingerprints(fps).extend([random_fp(rng, 5, pairs=64)])
+        FingerprintLibrary.from_fingerprints(fps, device="cpu").extend(
+            [random_fp(rng, 5, pairs=64)])
 
 
 def test_load_honours_stored_length(tmp_path):
@@ -214,13 +215,15 @@ def test_load_honours_stored_length(tmp_path):
         for _ in range(6):
             b.add_subfingerprint(rng.integers(0, 2, 128).astype(bool))
         fps.append(b.freeze())
-    lib = FingerprintLibrary.from_fingerprints(fps, cfg)
+    lib = FingerprintLibrary.from_fingerprints(fps, cfg, device="cpu")
     assert lib.pos_words.shape[2] == 2
     lib.save(str(tmp_path / "short.npz"))
     jax_library(fps, cfg).save(str(tmp_path / "short_jax.npz"))
     for name in ("short.npz", "short_jax.npz"):
         for cls in (FingerprintLibrary, JaxLibrary):
-            loaded = cls.load(str(tmp_path / name))
+            path = str(tmp_path / name)
+            loaded = (cls.load(path, device="cpu") if cls is FingerprintLibrary
+                      else cls.load(path))
             assert loaded.config.subfingerprint_length == 128
             np.testing.assert_allclose(np.asarray(loaded.match(query_for(cls, fps[1]))),
                                        lib.match(fps[1]), rtol=0, atol=1e-7)
@@ -230,7 +233,7 @@ def test_npz_interchange_both_ways(tmp_path):
     rng = np.random.default_rng(24)
     fps = [random_fp(rng, int(n)) for n in rng.integers(5, 50, size=6)]
     cfg = FingerprintConfig()
-    lib = FingerprintLibrary.from_fingerprints(fps, cfg)
+    lib = FingerprintLibrary.from_fingerprints(fps, cfg, device="cpu")
     jlib = jax_library(fps, cfg)
     lib.save(str(tmp_path / "port.npz"))
     jlib.save(str(tmp_path / "jax.npz"))
@@ -240,7 +243,7 @@ def test_npz_interchange_both_ways(tmp_path):
             assert a[k].dtype == b[k].dtype, k
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     query = Fingerprint(fps[2].pos[3:], fps[2].neg[3:])
-    from_jax = FingerprintLibrary.load(str(tmp_path / "jax.npz"), cfg)
+    from_jax = FingerprintLibrary.load(str(tmp_path / "jax.npz"), cfg, device="cpu")
     from_port = JaxLibrary.load(str(tmp_path / "port.npz"), jax_config(cfg))
     np.testing.assert_array_equal(from_jax.match(query), lib.match(query))
     np.testing.assert_allclose(np.asarray(from_port.match(jax_fp(query))), lib.match(query),
@@ -255,13 +258,14 @@ def test_npz_interchange_both_ways(tmp_path):
 def test_library_refuses_bad_state():
     words = np.zeros((3, 8, 4), np.uint32)
     with pytest.raises(TypeError):
-        FingerprintLibrary.from_arrays(words.astype(np.int64), words, np.zeros(3), 100)
+        FingerprintLibrary.from_arrays(words.astype(np.int64), words, np.zeros(3), 100,
+                                       device="cpu")
     with pytest.raises(ValueError, match="words per row"):
-        FingerprintLibrary.from_arrays(words, words, np.zeros(3), 64)
+        FingerprintLibrary.from_arrays(words, words, np.zeros(3), 64, device="cpu")
     with pytest.raises(ValueError, match="counts"):
-        FingerprintLibrary.from_arrays(words, words, np.array([0, 9, 1]), 100)
+        FingerprintLibrary.from_arrays(words, words, np.array([0, 9, 1]), 100, device="cpu")
     with pytest.raises(ValueError, match="empty"):
-        FingerprintLibrary.from_fingerprints([])
+        FingerprintLibrary.from_fingerprints([], device="cpu")
 
 
 def test_cuda_library_raises_without_gpu():

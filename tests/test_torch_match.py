@@ -24,11 +24,11 @@ def test_match_fingerprints_equals_jax(comparison_range):
     rng = np.random.default_rng(7 + comparison_range)
     for n1, n2 in [(10, 10), (20, 7), (5, 12), (1, 1), (48, 21), (3, 40)]:
         fp1, fp2 = _random_fp(rng, n1), _random_fp(rng, n2)
-        got = match_fingerprints(fp1, fp2, comparison_range)
+        got = match_fingerprints(fp1, fp2, comparison_range, device="cpu")
         assert abs(got - jax_match(fp1, fp2, comparison_range)) <= 1e-6
         if n1 != n2:             # the longer side is always slid: symmetric
-            assert abs(got - match_fingerprints(fp2, fp1, comparison_range)) <= 1e-6
-    assert match_fingerprints(_random_fp(rng, 0), _random_fp(rng, 4)) == 0.0
+            assert abs(got - match_fingerprints(fp2, fp1, comparison_range, device="cpu")) <= 1e-6
+    assert match_fingerprints(_random_fp(rng, 0), _random_fp(rng, 4), device="cpu") == 0.0
 
 
 @pytest.mark.parametrize("comparison_range", [0, 50, 201])
@@ -60,7 +60,7 @@ def test_one_vs_many_equals_jax(comparison_range):
         np.testing.assert_allclose(got, exp, rtol=0, atol=1e-6)
         for i, n in enumerate(n_lib):
             one = match_fingerprints((lib_pos[i, :n], lib_neg[i, :n]), (qp[:n_q], qn[:n_q]),
-                                     comparison_range)
+                                     comparison_range, device="cpu")
             assert abs(got[i] - one) <= 1e-6
 
 
@@ -100,7 +100,7 @@ def test_corpus_matrices_through_port_matcher(suffix):
     for n, f in files.items():
         with np.load(f) as z:
             fps[n] = (z["pos"], z["neg"])
-    m = np.array([[match_fingerprints(fps[a], fps[b + suffix]) * 100.0 for b in BIRDS]
+    m = np.array([[match_fingerprints(fps[a], fps[b + suffix], device="cpu") * 100.0 for b in BIRDS]
                   for a in BIRDS])
     identified = int(sum(m[i, i] == m[i].max() for i in range(10)))
     assert identified == IDENTIFIED[suffix]

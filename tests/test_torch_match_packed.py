@@ -20,8 +20,10 @@ from lbaudiodetective_tpu.ops.pallas.match_fused import match_one_vs_many_fused 
 from lbaudiodetective_tpu.utils.packing import pack_bits  # noqa: E402
 from lbaudiodetective_torch.ops import match_packed as tmp_  # noqa: E402
 from lbaudiodetective_torch.ops.kernels.match_packed import (  # noqa: E402
+    SMEM_FOUR_CTAS, SMEM_LIMIT, SMEM_TWO_CTAS, launch_plan,
     match_one_vs_many_fused as kernel_wrapper, popcount32)
-from tests._torch_common import ragged_case, sign_planes, synthetic_library  # noqa: E402
+from tests._torch_common import (  # noqa: E402
+    match_packed_layout, ragged_case, sign_planes, synthetic_library)
 
 
 def t_words(plane):
@@ -120,6 +122,29 @@ def test_kernel_wrapper_refuses_bad_input():
         kernel_wrapper(*meta, 100)
     with pytest.raises(ValueError, match="words per row"):
         tmp_.match_one_vs_many_packed(q[0], q[0], 1, lib, lib, nl, 64)
+
+
+def test_launch_plan_groups_queries_and_names_the_limit():
+    """The kernel's launch plan, with its layout as on the card: a full scan
+    (1 query of 80 rows vs 80-row entries) runs chunks of 16 entries, two
+    CTAs an SM; a search's coarse pass (4 phases of 20 rows) and
+    search_many's at B=8 (32 rows) run every query in one CTA, four CTAs an
+    SM; 64 queries of 64 rows split into groups of the most that fit; a
+    query and an entry of 4000 rows do not fit."""
+    def plan(b, sq, sl, w=4):
+        return launch_plan(match_packed_layout, b, sq, sl, w)
+
+    assert plan(1, 80, 80) == (1, 16, 2) and match_packed_layout(1, 80, 16, 80, 4) <= SMEM_TWO_CTAS
+    assert plan(4, 20, 20) == (4, 32, 4) and match_packed_layout(4, 20, 32, 20, 4) <= SMEM_FOUR_CTAS
+    assert plan(32, 20, 20) == (32, 16, 4)
+    bg, e, ctas = plan(64, 64, 64)
+    assert (e, ctas) == (16, 2) and 1 < bg < 64
+    assert match_packed_layout(bg, 64, 16, 64, 4) <= SMEM_TWO_CTAS
+    assert match_packed_layout(bg + 1, 64, 16, 64, 4) > SMEM_TWO_CTAS
+    bg, e, ctas = plan(1, 40, 1500)
+    assert e < 16 and match_packed_layout(1, 40, e, 1500, 4) <= SMEM_LIMIT
+    with pytest.raises(ValueError, match=f"the limit is {SMEM_LIMIT}"):
+        plan(1, 4000, 4000)
 
 
 def test_entries_per_call_chunks_only_the_plain_version():

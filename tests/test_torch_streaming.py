@@ -28,13 +28,14 @@ def _offline_reference(audio_batch, cfg, n_rows_avail):
         file_frames = n_rows_avail * cfg.analysis_stride + cfg.window_size
         d = DecodedAudio(samples=x, processing_rate=cfg.processing_sample_rate,
                          file_frames=file_frames, file_rate=cfg.file_sample_rate)
-        pos, neg, n = extract_fingerprint(d, cfg)
+        pos, neg, n = extract_fingerprint(d, cfg, device="cpu")
         out.append((pos[:n], neg[:n]))
     return out
 
 
 def _stream(cfg, audio, chunk, **kw):
-    ext = StreamingExtractor(batch=audio.shape[0], chunk_size=chunk, config=cfg, **kw)
+    ext = StreamingExtractor(batch=audio.shape[0], chunk_size=chunk, config=cfg, device="cpu",
+                             **kw)
     for s in range(audio.shape[1] // chunk):
         ext.feed(audio[:, s * chunk:(s + 1) * chunk])
     return ext
@@ -67,7 +68,7 @@ def test_incremental_equals_offline(hop_domain):
 
 
 def test_reset_clears_state():
-    ext = StreamingExtractor(batch=2, chunk_size=1024)
+    ext = StreamingExtractor(batch=2, chunk_size=1024, device="cpu")
     a = _noise(31, 2, 1024)
     for _ in range(3):
         ext.feed(a)
@@ -78,7 +79,7 @@ def test_reset_clears_state():
 
 
 def test_streaming_detective_lifecycle():
-    det = StreamingDetective(FingerprintConfig(), chunk_size=1024)
+    det = StreamingDetective(FingerprintConfig(), chunk_size=1024, device="cpu")
     done = []
     det.start_processing(max_subfingerprints=1, callback=done.append)
     rng = np.random.default_rng(32)
@@ -93,7 +94,7 @@ def test_streaming_detective_lifecycle():
     det.process_samples((rng.standard_normal(8192) * 0.1).astype(np.float32))
     assert len(done) == 1 and done[0].num_subfingerprints >= 1
     with pytest.raises(RuntimeError):
-        StreamingDetective().resume_processing()
+        StreamingDetective(device="cpu").resume_processing()
 
 
 def test_feed_pcm16_matches_float_feed():
@@ -103,8 +104,8 @@ def test_feed_pcm16_matches_float_feed():
     chunk = cfg.rows_per_frame * int(cfg.hop_in_processing_samples)
     i16 = (rng.standard_normal((2, 6, chunk)) * 3276.8).astype(np.int16)
     f32 = i16.astype(np.float32) / 32768.0
-    a = StreamingExtractor(batch=2, chunk_size=chunk, config=cfg)
-    b = StreamingExtractor(batch=2, chunk_size=chunk, config=cfg)
+    a = StreamingExtractor(batch=2, chunk_size=chunk, config=cfg, device="cpu")
+    b = StreamingExtractor(batch=2, chunk_size=chunk, config=cfg, device="cpu")
     for s in range(6):
         a.feed(f32[:, s])
         b.feed_pcm16(i16[:, s])
