@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's extract -> match path, its packed library
-path, every extraction config, the C-API layer and 256-stream streaming once
-on one GPU.
+path, every extraction config, the C-API layer, 256-stream streaming, the
+HTTP identification service with live sessions, the streaming identifier,
+MAA and the long matchers once on one GPU.
 
     python3 chip_smoke.py
 
@@ -75,6 +76,38 @@ Phases (each failed check raises, and the script exits non-zero):
    each; the essay's streaming names on a CUDA ``StreamingDetective``.  The
    select and rows kernels' launch counts over the timed feeds and the
    streaming names (not the offline references) are > 0.
+9. The HTTP service (``serving.py``) at the default config: phase 5's
+   16,384 entries (names ``track_<i>``; the 256 clips' fingerprints and 8
+   written 10 s WAV clips' planted) behind ``make_server`` on 127.0.0.1 in
+   a thread, batch window 0.02 s, max batch 8, so requests take the
+   two-stage search.  8 concurrent ``/identify`` with the WAVs' bytes (each
+   names its planted track; ``"top"`` equal to ``library.search`` bit for
+   bit; fewer than 8 extraction dispatches), ``/identify-fingerprint``,
+   ``/fingerprint`` of a 10 s and a 1.5 s clip (equal to
+   ``process_decoded``; the short one's single-step dispatch runs the
+   standalone select kernel), ``/healthz``, a malformed body and an
+   unknown session (400); a 4,096-entry slice answering with every score
+   (equal to ``library.match``).  Then 16 per-session and 64 pooled live
+   sessions post planted fingerprints 8 subfingerprints at a time over
+   HTTP; halfway, ``save_sessions`` -> a fresh service -> ``load_sessions``
+   and posting goes on there.  After every post the top-1 equals the
+   argmax of ``library.match_many`` on the accumulated fingerprint, score
+   bit-equal.  Prints p50/p95 latency of ``/identify`` and of the posts,
+   and posts/s.
+10. The streaming identifier at BASELINE config 4's size: 256 streams x
+   10 s (phase 5's clips) against the same library, chunk 1024, a match
+   every 4 subfingerprints, ``rematch="full"`` (the match kernel, one
+   launch a tick) and ``"incremental"`` (groups of 32): equal winners and
+   bit-equal scores after every chunk, every stream naming its planted
+   track; stream-seconds per second of each and its peak device memory.
+   The select, rows and match kernels' launch counts over phases 9-10
+   (requests and feeds, not the offline references) are > 0.
+11. ``maa_compare_audio_files`` on two written 44.1 kHz WAVs (a
+   window-aligned crop: >= 90 % of windows match, equal to the CPU port),
+   and ``match_long_padded`` over a one-hour fp1 (19,398 subfingerprints,
+   chunks of 512) against a 10 s query planted with 10 % of its bits
+   flipped: within 1e-6 of ``match_fingerprints``, and
+   ``match_long_hierarchical`` finding the same peak.
 
 The last three lines are the kernels' JSON record (each kernel's time,
 its plain version's and, where one PyTorch call computes the same function,
@@ -89,11 +122,13 @@ Needs one CUDA card; without one it exits 1 and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -119,6 +154,12 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
     print(f"  ok: {what}", flush=True)
+
+
+def check_quiet(cond: bool, what: str) -> None:
+    """``check`` without the line printed when it holds (per-request checks)."""
+    if not cond:
+        raise CheckFailed(what)
 
 
 def bound(n_bytes: float, **flops: float) -> dict:
@@ -447,7 +488,7 @@ def phase_rows(dev, rng, batch: int = 4, n_sub: int = 56) -> dict:
     return record
 
 
-def phase_main_path(dev, rng, n_clips: int = N_CLIPS, n_library: int = N_LIBRARY) -> dict:
+def phase_main_path(dev, rng, n_clips: int = N_CLIPS, n_library: int = N_LIBRARY) -> tuple:
     import numpy as np
     import torch
 
@@ -522,7 +563,7 @@ def phase_main_path(dev, rng, n_clips: int = N_CLIPS, n_library: int = N_LIBRARY
 
     print(f"  match_against_library(1 x {n_library}): call "
           f"{out['match_call_s'] * 1e3:.1f} ms", flush=True)
-    return out, fps, library
+    return out, fps, library, clips
 
 
 def time_library_match(dev, library) -> dict:
@@ -1135,6 +1176,431 @@ def phase_streaming(dev, rng, smi: str) -> tuple[dict, collections.Counter]:
     return out, counts
 
 
+SESSION_POST = 8                 # subfingerprints a live-session post
+N_WAV = 8                        # planted 10 s WAV clips posted to /identify
+# Library indices of the planted fingerprints, spread over the whole
+# 16,384 entries so that every chunk and query group of a match launch
+# holds winners: clip i of phase 5 (phase 10's stream i, the sessions'
+# fingerprint i; phase 5's library holds clip 0 itself at 0, every other
+# entry a noisy copy) and WAV clip j (phase 9's request j; j = 2 lies in
+# the every-score slice).
+CLIP_AT = [64 * i for i in range(N_CLIPS)]
+WAV_AT = [301 + 1500 * j for j in range(N_WAV)]
+N_SESSIONS, N_POOLED = 16, 64    # per-session and pooled live sessions
+N_SCORES = 4096                  # tracks of the slice served with every score
+STREAM_GROUP = 32                # streams a group of the incremental identifier
+LONG_SUBS = 19398                # one hour at 5.39 subfingerprints a second
+LONG_CHUNK = 512
+LONG_AT = 12345                  # where the long matchers' query is planted
+
+
+def service_library(dev, rng, fps, entries):
+    """Phase 5's 16,384 entries with the 256 clips' fingerprints planted at
+    CLIP_AT (phase 10's streams) and 8 written 10 s WAV clips' at WAV_AT
+    (phase 9's requests), on the card.  Returns the library,
+    its names, the WAVs' bytes (the 8, then a 1.5 s clip) and their
+    fingerprints through ``AudioDetective.process_decoded``."""
+    import numpy as np
+
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.io.decode import decode_audio_file
+    from lbaudiodetective_torch.io.wav import write_wav
+    from lbaudiodetective_torch.models.detective import AudioDetective
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+
+    cfg = FingerprintConfig()
+    det = AudioDetective(cfg, device=dev)
+    sig = brown_noise(rng, N_WAV + 1, int(CLIP_SECONDS * 44100))
+    sig = 0.5 * sig / np.abs(sig).max(axis=1, keepdims=True)
+    payloads, wav_fps = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, x in enumerate(sig):
+            path = f"{tmp}/clip{i}.wav"
+            write_wav(path, x if i < N_WAV else x[:66150], 44100)
+            payloads.append(pathlib.Path(path).read_bytes())
+            wav_fps.append(det.process_decoded(decode_audio_file(path)))
+    entries = list(entries)
+    for at, f in (*zip(CLIP_AT, fps), *zip(WAV_AT, wav_fps)):
+        entries[at] = f
+    lib = FingerprintLibrary.from_fingerprints(entries, cfg, device=dev)
+    return lib, [f"track_{i}" for i in range(len(entries))], payloads, wav_fps
+
+
+def http_call(addr, method: str, path: str, body: bytes | None = None):
+    """(status, JSON body, seconds) of one request to the server at ``addr``."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        status, out = resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+    return status, out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def serving(service):
+    """``make_server(service)`` on 127.0.0.1 at an ephemeral port, served
+    from a thread; yields the address, then stops and joins the thread."""
+    from lbaudiodetective_torch.serving import make_server
+
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv.server_address
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise CheckFailed("the server thread did not stop")
+
+
+def concurrently(fn, args_list: list) -> list:
+    """``fn(*args)`` for every ``args``, each in its own thread; the results
+    in order.  Raises the first error a thread met."""
+    results, failures = [None] * len(args_list), []
+
+    def run(i, args):
+        try:
+            results[i] = fn(*args)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            failures.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise CheckFailed("a request thread did not finish within 600 s")
+    if failures:
+        raise failures[0]
+    return results
+
+
+def post_sessions(addr, sids, fps, posts: range) -> tuple[list, list]:
+    """Each session posts the increments ``posts`` (indices of
+    SESSION_POST-subfingerprint slices) of its fingerprint in order, all
+    sessions at once.  Returns each session's (status, response) list and
+    every post's latency."""
+    def one(sid, fp):
+        subs = fp.to_string().split("+")
+        out = []
+        for k in posts:
+            body = "+".join(subs[k * SESSION_POST:(k + 1) * SESSION_POST]).encode("ascii")
+            out.append(http_call(addr, "POST", f"/stream/{sid}", body))
+        return out
+
+    runs = concurrently(one, list(zip(sids, fps)))
+    return [[(st, r) for st, r, _ in run] for run in runs], [dt for run in runs
+                                                             for *_, dt in run]
+
+
+def top_list(names, idx, scores) -> list:
+    return [{"track": names[int(i)], "score": float(s)} for i, s in zip(idx, scores)]
+
+
+def plain_plane(lib, queries):
+    """``[B, L]`` scores of ``queries`` against the whole of ``lib`` by the
+    match kernel's plain version, on the words ``lib.match_many`` stacks
+    (no launch counted).  One query at a time holds a ``[L, S, S]`` hit
+    plane of 0.27 GB at 16,384 entries of 64 rows."""
+    import torch
+
+    from lbaudiodetective_torch.models.library import stack_query_planes
+    from lbaudiodetective_torch.ops.kernels.match_packed import match_one_vs_many_fused_plain
+    from lbaudiodetective_torch.ops.match_packed import _mask_pairs
+
+    qp, qn, nq = stack_query_planes(queries, int(lib.pos_words.shape[1]))
+    qpw, qnw = lib._query_words(qp, qn)
+    m = _mask_pairs(lib.pairs, 0, lib.config.subfingerprint_length)
+    return match_one_vs_many_fused_plain(qpw, qnw, torch.from_numpy(nq).to(lib.device),
+                                         lib.pos_words, lib.neg_words, lib.counts,
+                                         m).cpu().numpy()
+
+
+def run_sessions(dev, cfg, lib, names, svc, streams, pool: bool):
+    """Open a session a fingerprint on ``svc``, post the first four
+    increments over HTTP, ``save_sessions`` into a fresh service,
+    ``load_sessions`` there and post the rest, then peek and close.
+    Returns (responses a session, latencies, posting wall, saved, loaded,
+    peeks, closes)."""
+    from lbaudiodetective_torch.serving import IdentificationService
+
+    n_posts = -(-max(f.num_subfingerprints for f in streams) // SESSION_POST)
+    with serving(svc) as addr:
+        sids = [http_call(addr, "POST", "/stream/open")[1]["session"] for _ in streams]
+        t0 = time.perf_counter()
+        first, lat1 = post_sessions(addr, sids, streams, range(4))
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = svc.save_sessions(tmp)
+        fresh = IdentificationService(lib, names, cfg, stream_pool=pool, device=dev)
+        loaded = fresh.load_sessions(tmp)
+    with serving(fresh) as addr:
+        t0 = time.perf_counter()
+        second, lat2 = post_sessions(addr, sids, streams, range(4, n_posts))
+        wall += time.perf_counter() - t0
+        peeks = [http_call(addr, "GET", f"/stream/{sid}")[:2] for sid in sids]
+        closes = [http_call(addr, "POST", f"/stream/{sid}/close")[:2] for sid in sids]
+    return ([a + b for a, b in zip(first, second)], lat1 + lat2, wall, saved, loaded,
+            peeks, closes)
+
+
+def phase_service(dev, lib, names, payloads, wav_fps, fps, smi: str
+                  ) -> tuple[dict, collections.Counter]:
+    """The HTTP identification service on the card (``serving.py``).  Returns
+    the measurements and the kernels' launch counts over the requests; the
+    offline references the answers are held to run after them."""
+    import numpy as np
+
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.ops import kernels
+    from lbaudiodetective_torch.serving import IdentificationService
+
+    print(f"[9] HTTP service on {dev}: {len(lib):,} tracks (two-stage search), "
+          f"a {N_SCORES:,}-track slice (every score), live sessions", flush=True)
+    cfg = FingerprintConfig()
+    out = {}
+    batching = dict(batch_window_s=0.02, max_batch=8, device=dev)
+    svc = IdentificationService(lib, names, cfg, **batching)
+    small = FingerprintLibrary(lib.pos_words[:N_SCORES], lib.neg_words[:N_SCORES],
+                               lib.counts[:N_SCORES], lib.pairs, cfg)
+    small_svc = IdentificationService(small, names[:N_SCORES], cfg, **batching)
+    wav = payloads[:N_WAV]
+    kernels.reset_launch_counts()
+    with serving(svc) as addr:
+        concurrently(lambda p: http_call(addr, "POST", "/identify", p),
+                     [(p,) for p in wav])              # warm-up: threads, allocator
+        before = svc.extract_dispatches
+        t0 = time.perf_counter()
+        identified = concurrently(lambda p: http_call(addr, "POST", "/identify", p),
+                                  [(p,) for p in wav])
+        out["identify_wall_s"] = time.perf_counter() - t0
+        dispatches = svc.extract_dispatches - before
+        by_text = http_call(addr, "POST", "/identify-fingerprint",
+                            wav_fps[1].to_string().encode("ascii"))
+        printed = [http_call(addr, "POST", "/fingerprint", payloads[i]) for i in (0, N_WAV)]
+        health = http_call(addr, "GET", "/healthz")
+        malformed = http_call(addr, "POST", "/identify", b"RIFF\x00\x00 not audio")
+        unknown = http_call(addr, "GET", "/stream/no-such-session")
+    every_score = small_svc.identify(wav[2])
+    per_session = run_sessions(dev, cfg, lib, names, svc, fps[:N_SESSIONS], pool=False)
+    pooled = run_sessions(dev, cfg, lib, names,
+                          IdentificationService(lib, names, cfg, stream_pool=True, device=dev),
+                          fps[N_SESSIONS:N_SESSIONS + N_POOLED], pool=True)
+    counts = collections.Counter(kernels.launch_counts())
+
+    # -- the answers against the library's offline calls --------------------
+    many_idx, many_sc = lib.search_many(wav_fps[:N_WAV], top_k=5)
+    for j, (status, body, _) in enumerate(identified):
+        idx, sc = lib.search(wav_fps[j], top_k=5)
+        check_quiet(status == 200 and body["track"] == names[WAV_AT[j]]
+                    and body["top"] == top_list(names, idx, sc)
+                    == top_list(names, many_idx[j], many_sc[j]),
+                    f"/identify {j}: {status} {body}")
+    check(True, f"{N_WAV} concurrent /identify: each names its planted track (entries "
+                f"{WAV_AT[0]}-{WAV_AT[-1]}), 'top' equal to library.search and to a row of "
+                f"one search_many batch bit for bit")
+    plain = plain_plane(lib, wav_fps[:N_WAV])
+    check(np.array_equal(many_sc, np.take_along_axis(plain, many_idx, 1))
+          and np.array_equal(many_idx[:, 0], plain.argmax(1))
+          and many_idx[:, 0].tolist() == WAV_AT,
+          f"search_many x {N_WAV}: exact scores equal the plain matcher's at every returned "
+          f"index, winners its argmax over all {len(lib):,} entries")
+    check(dispatches < N_WAV, f"{N_WAV} requests took {dispatches} extraction dispatches")
+    idx, sc = lib.search(wav_fps[1], top_k=5)
+    check(by_text[0] == 200 and by_text[1]["top"] == top_list(names, idx, sc),
+          "/identify-fingerprint equals library.search")
+    want = small.match(wav_fps[2])
+    check(every_score["track"] == names[WAV_AT[2]]
+          and list(every_score["scores"].values()) == [float(s) for s in want]
+          and list(every_score["scores"]) == names[:N_SCORES],
+          f"{N_SCORES:,}-track service: every score equal to library.match")
+    check(all(st == 200 and body["fingerprint"] == wav_fps[i].to_string()
+              for (st, body, _), i in zip(printed, (0, N_WAV))),
+          f"/fingerprint of a 10 s and a 1.5 s clip equal to process_decoded "
+          f"({printed[0][1]['n']} and {printed[1][1]['n']} subfingerprints)")
+    check(health[:2] == (200, {"ok": True, "tracks": len(lib)}), "/healthz")
+    check(malformed[0] == 400 and unknown[0] == 400,
+          f"malformed body and unknown session: {malformed[0]}, {unknown[0]}")
+
+    for mode, streams, run in (("per-session", fps[:N_SESSIONS], per_session),
+                               ("pooled", fps[N_SESSIONS:N_SESSIONS + N_POOLED], pooled)):
+        answers, lat, wall, saved, loaded, peeks, closes = run
+        check(saved == loaded == len(streams),
+              f"{mode}: {saved} sessions saved, {loaded} loaded into a fresh service")
+        last = len(answers[0]) - 1
+        for k in range(len(answers[0])):
+            n = min((k + 1) * SESSION_POST, streams[0].num_subfingerprints)
+            prefixes = [type(f)(f.pos[:n], f.neg[:n]) for f in streams]
+            want = lib.match_many(prefixes)
+            if k in (1, last):
+                check(np.array_equal(want, plain_plane(lib, prefixes)),
+                      f"{mode}: match_many [{len(streams)}, {len(lib):,}] plane after post "
+                      f"{k} ({n} subfingerprints) equal to the plain matcher's")
+            for s, (st, body) in enumerate(a[k] for a in answers):
+                best = int(np.argmax(want[s]))
+                check_quiet(st == 200 and body["n"] == n and body["track"] == names[best]
+                            and body["score"] == float(want[s, best]),
+                            f"{mode} session {s}, post {k}: {st} {body}")
+        check(all(p == (200, answers[s][-1][1]) == c for s, (p, c)
+                  in enumerate(zip(peeks, closes))),
+              f"{mode}: peek and close equal the last post's answer")
+        first = N_SESSIONS if mode == "pooled" else 0
+        check([a[-1][1]["track"] for a in answers]
+              == [names[at] for at in CLIP_AT[first:first + len(streams)]],
+              f"{mode}: {len(streams)} sessions x {len(answers[0])} posts of {SESSION_POST}: "
+              f"top-1 = argmax of library.match_many after every post, scores bit-equal; "
+              f"each names its own entry at the end")
+        post_ms = np.array(lat) * 1e3
+        key = mode.replace("-", "_")
+        out.update({f"{key}_post_p50_ms": float(np.percentile(post_ms, 50)),
+                    f"{key}_post_p95_ms": float(np.percentile(post_ms, 95)),
+                    f"{key}_posts_per_s": len(lat) / wall, f"{key}_posts": len(lat)})
+        print(f"  {mode} posts over HTTP: p50 {out[f'{key}_post_p50_ms']:.1f} ms, p95 "
+              f"{out[f'{key}_post_p95_ms']:.1f} ms, {out[f'{key}_posts_per_s']:.1f} posts/s "
+              f"({smi})", flush=True)
+    lat_ms = np.array([dt for *_, dt in identified]) * 1e3
+    out.update(identify_p50_ms=float(np.percentile(lat_ms, 50)),
+               identify_p95_ms=float(np.percentile(lat_ms, 95)),
+               identify_dispatches=dispatches)
+    print(f"  /identify x {N_WAV} concurrent: p50 {out['identify_p50_ms']:.1f} ms, p95 "
+          f"{out['identify_p95_ms']:.1f} ms, {dispatches} dispatches ({smi})", flush=True)
+    return out, counts
+
+
+def phase_stream_identify(dev, lib, clips, smi: str) -> tuple[dict, collections.Counter]:
+    """BASELINE config 4's size: 256 streams x 10 s against the 16,384-entry
+    library, chunk 1024, a match every 4 subfingerprints, ``rematch="full"``
+    (the match kernel, one launch a tick) and ``"incremental"`` in groups
+    of 32.  Both name every planted stream's track, with equal winners and
+    bit-equal scores after every chunk, and the match kernel's whole
+    ``[256, 16,384]`` score plane at the last tick equals the incremental
+    matcher's (plain torch).  Returns the rates and the kernels' launch
+    counts over both runs."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.ops import kernels
+    from lbaudiodetective_torch.streaming import StreamingIdentifier
+
+    print(f"[10] streaming identifier: {N_CLIPS} streams x {CLIP_SECONDS:g} s vs "
+          f"{len(lib):,} tracks", flush=True)
+    cfg = FingerprintConfig()
+    audio = np.stack([c.samples for c in clips])
+    steps = audio.shape[1] // 1024
+    chunks = [np.ascontiguousarray(audio[:, s * 1024:(s + 1) * 1024]) for s in range(steps)]
+    stream_s = steps * 1024 / cfg.processing_sample_rate
+    out, runs, planes, counts = {}, {}, {}, collections.Counter()
+    for mode, group in (("full", 0), ("incremental", STREAM_GROUP)):
+        ident = StreamingIdentifier(lib, N_CLIPS, 1024, cfg, match_every=4, rematch=mode,
+                                    match_stream_group=group, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        history = []
+        t0 = time.perf_counter()
+        for c in chunks:
+            ident.feed(c)
+            history.append([(m.track, m.score, m.n_subfingerprints) for m in ident.best()])
+        final = ident.finalize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts.update(kernels.launch_counts())
+        runs[mode] = history + [[(m.track, m.score, m.n_subfingerprints) for m in final]]
+        # The last tick's scores, read again after the launch counts: the
+        # full mode's call of the match kernel, the incremental diagonals.
+        planes[mode] = (ident._full_scores(*ident._accumulated()).cpu().numpy()
+                        if mode == "full" else ident._inc.scores())
+        out[f"{mode}_stream_s_per_s"] = N_CLIPS * stream_s / wall
+        out[f"{mode}_wall_s"] = wall
+        out[f"{mode}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  rematch={mode}{f', groups of {group}' if group else ''}: {wall * 1e3:.1f} ms "
+              f"for {steps} chunks, {out[f'{mode}_stream_s_per_s']:.1f} stream-seconds per "
+              f"second, peak {out[f'{mode}_peak_gb']:.2f} GB ({smi})", flush=True)
+        del ident
+        torch.cuda.empty_cache()
+    check(runs["full"] == runs["incremental"],
+          f"full and incremental: equal winners, scores bit-equal after each of {steps} chunks")
+    plane = planes["full"]
+    check(plane.shape == (N_CLIPS, len(lib)) and np.isfinite(plane).all()
+          and np.array_equal(plane, planes["incremental"]),
+          f"last tick: the match kernel's {list(plane.shape)} score plane equal to the "
+          f"incremental matcher's (plain torch) at every entry")
+    final = runs["full"][-1]
+    check([t for t, _, _ in final] == CLIP_AT,
+          f"every stream names its planted track at entries {CLIP_AT[0]}-{CLIP_AT[-1]} "
+          f"(scores {min(s for _, s, _ in final):.4f}-{max(s for _, s, _ in final):.4f}, "
+          f"{final[0][2]} subfingerprints)")
+    return out, counts
+
+
+def phase_maa_long(dev, rng, fps, smi: str) -> dict:
+    """MAA on two written 44.1 kHz WAVs, and the long matchers on a one-hour
+    fp1 (LONG_SUBS subfingerprints, padded to LONG_CHUNK) against a 10 s
+    query planted with 10 % of its bits flipped at LONG_AT."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_torch.io.wav import write_wav
+    from lbaudiodetective_torch.models.maa import WINDOW, maa_compare_audio_files
+    from lbaudiodetective_torch.ops.match import (
+        match_fingerprints, match_long_hierarchical, match_long_padded)
+
+    print("[11] MAA and the long matchers", flush=True)
+    out = {}
+    sig = brown_noise(rng, 1, int(CLIP_SECONDS * 44100))[0]
+    sig = 0.5 * sig / np.abs(sig).max()
+    crop = sig[40 * WINDOW:40 * WINDOW + 5 * 44100]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_wav(f"{tmp}/a.wav", sig, 44100)
+        write_wav(f"{tmp}/b.wav", crop, 44100)
+        t0 = time.perf_counter()
+        count = maa_compare_audio_files(f"{tmp}/a.wav", f"{tmp}/b.wav", device=dev)
+        out["maa_ms"] = (time.perf_counter() - t0) * 1e3
+        cpu_count = maa_compare_audio_files(f"{tmp}/a.wav", f"{tmp}/b.wav", device="cpu")
+    windows = len(crop) // WINDOW
+    check(count == cpu_count and count >= 0.9 * windows,
+          f"maa_compare_audio_files: {count} of {windows} windows match (CPU port {cpu_count})")
+
+    body = fps[:200]                             # fps[-1] occurs only where planted
+    reps = -(-LONG_SUBS // body[0].num_subfingerprints)
+    pos = np.concatenate([body[i % len(body)].pos for i in range(reps)])[:LONG_SUBS]
+    neg = np.concatenate([body[i % len(body)].neg for i in range(reps)])[:LONG_SUBS]
+    query = flipped(fps[-1], rng, 0.10)
+    n2 = query.num_subfingerprints
+    pos[LONG_AT:LONG_AT + n2], neg[LONG_AT:LONG_AT + n2] = fps[-1].pos, fps[-1].neg
+    s1 = -(-LONG_SUBS // LONG_CHUNK) * LONG_CHUNK
+    p1, q1 = (torch.zeros((s1, 100), dtype=torch.uint8, device=dev) for _ in range(2))
+    p1[:LONG_SUBS], q1[:LONG_SUBS] = (torch.from_numpy(x).to(dev) for x in (pos, neg))
+    p2, q2 = (torch.zeros((56, 100), dtype=torch.uint8, device=dev) for _ in range(2))
+    p2[:n2], q2[:n2] = (torch.from_numpy(x).to(dev) for x in (query.pos, query.neg))
+    args = (p1, q1, LONG_SUBS, p2, q2, n2)
+    for name, fn in (("padded", lambda: match_long_padded(*args, chunk=LONG_CHUNK, device=dev)),
+                     ("hierarchical", lambda: match_long_hierarchical(*args, device=dev))):
+        fn()                                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[f"long_{name}"] = float(fn())
+        out[f"long_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    dense = match_fingerprints((pos, neg), (query.pos, query.neg), device=dev)
+    check(abs(out["long_padded"] - dense) <= MATCH_TOL and out["long_padded"] > 0.7,
+          f"match_long_padded over {LONG_SUBS} subfingerprints: {out['long_padded']:.7f} "
+          f"(match_fingerprints {dense:.7f}) in {out['long_padded_ms']:.1f} ms")
+    check(abs(out["long_hierarchical"] - out["long_padded"]) <= MATCH_TOL,
+          f"match_long_hierarchical finds the same peak: {out['long_hierarchical']:.7f} in "
+          f"{out['long_hierarchical_ms']:.1f} ms ({smi})")
+    return out
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1189,7 +1655,7 @@ def main() -> int:
     records = [phase_select(dev, rng), phase_rows(dev, rng)]
 
     kernels.reset_launch_counts()
-    main_out, fps, library = phase_main_path(dev, rng)
+    main_out, fps, library, clips = phase_main_path(dev, rng)
     counts = kernels.launch_counts()
     for name in (*(r["name"] for r in records), "match_one_vs_many_fused"):
         check(counts[name] > 0, f"main path launched {name} {counts[name]} times")
@@ -1211,6 +1677,7 @@ def main() -> int:
     n = kernels.launch_counts()["match_one_vs_many_fused"]
     check(n > 0, f"library path launched match_one_vs_many_fused {n} times")
     records[-1]["launches"] = match_launches + n
+    del lib
 
     band = phase_band_rows(dev, rng, smi)
     kernels.reset_launch_counts()
@@ -1225,6 +1692,19 @@ def main() -> int:
     for r in (*records, *band.values()):
         r["launches"] += counts[r["name"]]
     records += band.values()
+
+    torch.cuda.empty_cache()
+    svc_lib, names, payloads, wav_fps = service_library(dev, rng, fps, library)
+    main_out["service"], counts = phase_service(dev, svc_lib, names, payloads, wav_fps, fps,
+                                                smi)
+    main_out["stream_identify"], more = phase_stream_identify(dev, svc_lib, clips, smi)
+    counts.update(more)
+    for name in ("select_sign_classes", "fused_band_rows", "match_one_vs_many_fused"):
+        check(counts[name] > 0, f"service + streaming identifier launched {name} "
+                                f"{counts[name]} times")
+    for r in records:
+        r["launches"] += counts[r["name"]]
+    main_out["maa_long"] = phase_maa_long(dev, rng, fps, smi)
     check("jax" not in sys.modules, "no JAX module was imported")
 
     print(json.dumps({"main_path": main_out}))

@@ -1,6 +1,9 @@
 """LBAudioDetective on PyTorch and CUDA: the port of the JAX package.
 
-The extract -> match path, the packed library, the streaming runtime and the
+The extract -> match path, the packed library, the streaming runtime and
+identifier (``streaming``, with the incremental matcher), the HTTP
+identification service (``serving``), MAA (``models.maa``), the long
+matchers (``ops.match``), the profiling hooks (``utils.profiling``) and the
 C-API name layer (``compat``) run on a torch device; on CUDA the extraction
 and the library's matcher go through hand-written Hopper kernels
 (``ops.kernels``).  Decoding, resampling, the configuration,
@@ -16,6 +19,8 @@ package.
     FingerprintLibrary  -- packed, device-resident library: match, search
     StreamingExtractor  -- incremental extraction for B lockstep streams
     StreamingDetective  -- single-stream Start/Stop/Pause/Resume API
+    StreamingIdentifier -- B streams identified against a library
+    IdentificationService -- the HTTP edge's request -> response core
     extract_fingerprint -- single-clip extraction
     match_fingerprints  -- offset-sliding matcher
 
@@ -35,6 +40,8 @@ _EXPORTS = {
     "match_fingerprints": "lbaudiodetective_torch.ops.match",
     "StreamingExtractor": "lbaudiodetective_torch.streaming.runtime",
     "StreamingDetective": "lbaudiodetective_torch.streaming.runtime",
+    "StreamingIdentifier": "lbaudiodetective_torch.streaming.identify",
+    "IdentificationService": "lbaudiodetective_torch.serving",
 }
 
 __all__ = list(_EXPORTS)

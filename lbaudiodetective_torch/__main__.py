@@ -1,13 +1,18 @@
 """Command-line interface: ``python -m lbaudiodetective_torch <cmd> ...``.
 
-The offline enroll-then-identify workflow of the JAX package's CLI, on one
-torch device (``--device``, default ``cuda``; it raises when CUDA is
-absent, it never falls back to the CPU):
+The JAX package's CLI on one torch device (``--device``, default ``cuda``;
+it raises when CUDA is absent, it never falls back to the CPU):
 
   fingerprint <clip>                      print the fingerprint string form
-  compare <clip1> <clip2>                 print the match score
+  compare <clip1> <clip2> [--algorithm maa]  print the match score (count)
   enroll <dir> -o lib.npz                 build a library from a directory
   identify <clip> --library lib.npz       best match + per-track scores
+  serve --library lib.npz                 run the HTTP identification edge
+  client <clip> --url http://host:8414    POST a clip to a running server
+  listen <clip> --url http://host:8414    stream a clip's fingerprint to one
+
+The reference's ``dedup`` and ``serve --shard-library`` need its parallel
+modules and are not ported here.
 
 Audio: CAF (IMA4/LPCM), WAV, and AIFF/AIFF-C.  Library files are the JAX
 package's npz format (parameter-hash guarded); either package reads the
@@ -40,6 +45,12 @@ def cmd_fingerprint(args) -> int:
 
 
 def cmd_compare(args) -> int:
+    if args.algorithm == "maa":
+        # The essay's rejected predecessor: a match count, not a score.
+        from lbaudiodetective_torch.models.maa import maa_compare_audio_files
+
+        print(maa_compare_audio_files(args.clip1, args.clip2, device=args.device))
+        return 0
     score = _detective(args.device).compare_audio_files(args.clip1, args.clip2)
     print(f"{score:.4f}")
     return 0
@@ -118,6 +129,90 @@ def cmd_identify(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    from lbaudiodetective_torch.serving import IdentificationService, serve_forever
+
+    lib, names = _load_library(args.library, args.device)
+    service = IdentificationService(
+        lib, names, batch_window_s=args.batch_window, max_batch=args.max_batch,
+        n_sub_cap=args.n_sub_cap, search_threshold=args.search_threshold,
+        top_k=args.top_k, stream_pool=args.stream_pool,
+        stream_flush_window_s=args.stream_flush_window, device=args.device)
+    if args.sessions_dir and pathlib.Path(args.sessions_dir).is_dir():
+        n = service.load_sessions(args.sessions_dir)
+        if n:
+            print(f"restored {n} live session(s) from {args.sessions_dir}",
+                  file=sys.stderr)
+    print(f"serving {len(names)} tracks on {args.host}:{args.port} ({service.device})",
+          file=sys.stderr)
+    try:
+        serve_forever(service, host=args.host, port=args.port)
+    finally:
+        # Checkpoint live sessions on shutdown (Ctrl-C included) so the next
+        # boot with the same --sessions-dir resumes them.
+        if args.sessions_dir:
+            n = service.save_sessions(args.sessions_dir)
+            print(f"saved {n} live session(s) to {args.sessions_dir}", file=sys.stderr)
+    return 0
+
+
+def cmd_client(args) -> int:
+    """The essay's app side (PDF §3.2.4-3.2.5): upload a recording (or,
+    with ``--local-extract``, its fingerprint) and print the answer."""
+    import urllib.error
+    import urllib.request
+
+    if args.local_extract:
+        fp = _detective(args.device).process_audio_file(args.clip)
+        payload = fp.to_string().encode("ascii")
+        url = args.url.rstrip("/") + "/identify-fingerprint"
+    else:
+        with open(args.clip, "rb") as f:
+            payload = f.read()
+        url = args.url.rstrip("/") + ("/fingerprint" if args.fingerprint else "/identify")
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=payload),
+                                    timeout=args.timeout) as r:
+            print(r.read().decode())
+        return 0
+    except urllib.error.HTTPError as e:
+        print(e.read().decode(), file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"cannot reach {args.url}: {e.reason}", file=sys.stderr)
+        return 2
+
+
+def cmd_listen(args) -> int:
+    """Live recognition against a running server: fingerprint the clip
+    here, post it to ``/stream/<id>`` ``--chunk`` subfingerprints at a time,
+    and print the running best match after every post."""
+    import urllib.error
+    import urllib.request
+
+    def post(path, payload=b""):
+        req = urllib.request.Request(args.url.rstrip("/") + path, data=payload)
+        with urllib.request.urlopen(req, timeout=args.timeout) as r:
+            return json.loads(r.read().decode())
+
+    fp = _detective(args.device).process_audio_file(args.clip)
+    subs = fp.to_string().split("+") if fp.num_subfingerprints else []
+    try:
+        sid = post("/stream/open")["session"]
+        for i in range(0, len(subs), args.chunk):
+            body = post(f"/stream/{sid}", "+".join(subs[i:i + args.chunk]).encode("ascii"))
+            print(f"[{body['n']:4d} subs] {body['track']} {body['score']:.4f}",
+                  file=sys.stderr)
+        print(json.dumps(post(f"/stream/{sid}/close")))
+        return 0
+    except urllib.error.HTTPError as e:
+        print(e.read().decode(), file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"cannot reach {args.url}: {e.reason}", file=sys.stderr)
+        return 2
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lbaudiodetective_torch",
                                 description=__doc__.split("\n", 1)[0])
@@ -134,6 +229,10 @@ def build_parser() -> argparse.ArgumentParser:
     c = sub.add_parser("compare", parents=[dev], help="match score between two clips")
     c.add_argument("clip1")
     c.add_argument("clip2")
+    c.add_argument("--algorithm", choices=("afa", "maa"), default="afa",
+                   help="afa = the shipped fingerprinting algorithm; "
+                        "maa = the essay's rejected predecessor "
+                        "(prints a match count, not a score)")
     c.set_defaults(fn=cmd_compare)
 
     e = sub.add_parser("enroll", parents=[dev], help="build a library from a directory")
@@ -152,6 +251,53 @@ def build_parser() -> argparse.ArgumentParser:
                    help="answer with the exact top-K via two-stage "
                         "coarse->exact search (large libraries)")
     i.set_defaults(fn=cmd_identify)
+
+    s = sub.add_parser("serve", parents=[dev], help="run the HTTP identification server")
+    s.add_argument("--library", required=True)
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8414)
+    s.add_argument("--batch-window", type=float, default=0.0, metavar="S",
+                   help="micro-batch concurrent identifies arriving within "
+                        "S seconds into one device dispatch (0 = off)")
+    s.add_argument("--max-batch", type=int, default=8)
+    s.add_argument("--n-sub-cap", type=int, default=0, metavar="K",
+                   help="pin batched extraction to one shape (cap each clip "
+                        "at K subfingerprints)")
+    s.add_argument("--search-threshold", type=int, default=4096,
+                   help="library size above which responses use two-stage "
+                        "top-k search instead of full score enumeration")
+    s.add_argument("--top-k", type=int, default=5)
+    s.add_argument("--sessions-dir", default="", metavar="DIR",
+                   help="persist live-recognition sessions here on shutdown "
+                        "and restore them on boot (same library required)")
+    s.add_argument("--stream-pool", action="store_true",
+                   help="pool live-recognition sessions in one slot-batched "
+                        "matcher: concurrent posts fold into one call per "
+                        "flush window")
+    s.add_argument("--stream-flush-window", type=float, default=0.02,
+                   metavar="S", help="pooled-session flush window seconds")
+    s.set_defaults(fn=cmd_serve)
+
+    cl = sub.add_parser("client", parents=[dev], help="POST a clip to a running server")
+    cl.add_argument("clip")
+    cl.add_argument("--url", default="http://127.0.0.1:8414")
+    cl.add_argument("--fingerprint", action="store_true",
+                    help="request /fingerprint instead of /identify")
+    cl.add_argument("--local-extract", action="store_true",
+                    help="fingerprint here (on --device) and upload only the "
+                         "fingerprint string (the essay's phone-side protocol)")
+    cl.add_argument("--timeout", type=float, default=120.0)
+    cl.set_defaults(fn=cmd_client)
+
+    li = sub.add_parser("listen", parents=[dev],
+                        help="stream a clip's fingerprint to a running server "
+                             "in increments (live recognition)")
+    li.add_argument("clip")
+    li.add_argument("--url", default="http://127.0.0.1:8414")
+    li.add_argument("--chunk", type=int, default=4, metavar="K",
+                    help="subfingerprints per post")
+    li.add_argument("--timeout", type=float, default=120.0)
+    li.set_defaults(fn=cmd_listen)
     return p
 
 

@@ -23,3 +23,14 @@ def resolve_device(device: torch.device | str, what: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{what}(device={str(device)!r}): CUDA is not available")
     return device
+
+
+def library_device(library, device: torch.device | str, what: str) -> torch.device:
+    """The device of ``library`` once ``device`` (resolved as
+    :func:`resolve_device` does) is checked to be it: ``ValueError`` when
+    the caller's device and the library's differ."""
+    device = resolve_device(device, what)
+    lib_dev = library.device
+    if device.type != lib_dev.type or device.index not in (None, lib_dev.index):
+        raise ValueError(f"{what}: the library is on {lib_dev}, not on {device}")
+    return lib_dev

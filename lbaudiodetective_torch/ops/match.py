@@ -201,3 +201,122 @@ def _both_orientation_scores(hits: torch.Tensor, inv_lib: torch.Tensor,
     score_b = torch.where(o_valid_b, means_b, torch.zeros_like(means_b)).amax(-1)
     score_b = torch.where(n_lib > 0, score_b, torch.zeros_like(score_b))
     return torch.where(n_lib < nq, score_b, score_a)
+
+
+def _long_inputs(pos1, neg1, n1, pos2, neg2, n2, device: torch.device | str, what: str):
+    """The long matchers' planes (uint8 arrays or tensors) and counts as
+    tensors on ``device``."""
+    device = resolve_device(device, what)
+    planes = [torch.as_tensor(x, device=device) for x in (pos1, neg1, pos2, neg2)]
+    counts = [torch.as_tensor(n, dtype=torch.int64, device=device) for n in (n1, n2)]
+    return device, planes, counts
+
+
+def match_long_padded(pos1, neg1, n1, pos2, neg2, n2,
+                      comparison_range: int = 0,
+                      subfingerprint_length: int = 200,
+                      chunk: int = 512,
+                      device: torch.device | str = DEFAULT_DEVICE) -> torch.Tensor:
+    """Long-context one-vs-one matcher: fp1 may be hours long.
+
+    fp1 is scanned in ``chunk``-row blocks, so the ``[S1, S2]`` similarity
+    matrix never exists whole.  Each block's similarity ``[chunk, S2]``
+    adds its banded-diagonal sums into a ``chunk + S2`` window, column by
+    column in ascending order, and the window is added into the offset
+    accumulator at the block's base offset, in block order: the reference's
+    order (the JAX package's ``ops/match.py:186-193``).  fp1 must be the
+    longer side (no swap here) and zero-padded to a multiple of ``chunk``.
+    Planes are uint8 ``[S1, pairs]`` / ``[S2, pairs]`` on or for ``device``;
+    returns a 0-d float32 tensor there."""
+    device, (pos1, neg1, pos2, neg2), (n1, n2) = _long_inputs(
+        pos1, neg1, n1, pos2, neg2, n2, device, "match_long_padded")
+    s1, pairs = pos1.shape
+    s2 = pos2.shape[0]
+    if s1 % chunk:
+        raise ValueError("pos1 must be padded to a multiple of chunk")
+    mask = torch.from_numpy(_pair_mask(pairs, comparison_range,
+                                       subfingerprint_length)).to(device)
+    p2 = pos2.to(torch.float32)
+    q2 = neg2.to(torch.float32)
+    i_mask = (torch.arange(s2, device=device) < n2).to(torch.float32)
+    # Offsets o live at acc[o + S2]: a block's window [b*chunk - S2,
+    # b*chunk + chunk) never leaves the padding, which no valid offset reads.
+    acc = torch.zeros(s1 + 2 * s2, dtype=torch.float32, device=device)
+    for start in range(0, s1, chunk):
+        lp = pos1[start:start + chunk].to(torch.float32) * mask
+        ln = neg1[start:start + chunk].to(torch.float32) * mask
+        hits = torch.matmul(lp, p2.T) + torch.matmul(ln, q2.T)
+        w = (lp + ln).sum(-1)
+        sim = torch.where(w[:, None] > 0.0, hits / torch.clamp(w, min=1.0)[:, None],
+                          torch.zeros_like(hits)) * i_mask[None, :]
+        # local[k] = sum_i sim[k - S2 + i, i] for k in [0, chunk + S2).
+        padded = F.pad(sim, (0, 0, s2, s2))
+        local = _sum_in_order(_diagonal_view(padded, chunk + s2, s2, s2, s2 + 1))
+        acc[start:start + chunk + s2] = acc[start:start + chunk + s2] + local
+    means = acc[s2:s2 + s1] / torch.clamp(n2, min=1).to(torch.float32)
+    o_valid = torch.arange(s1, device=device) <= (n1 - n2)
+    score = torch.where(o_valid, means, torch.zeros_like(means)).amax()
+    return torch.where(n2 > 0, score, torch.zeros_like(score))
+
+
+def match_long_hierarchical(pos1, neg1, n1, pos2, neg2, n2,
+                            comparison_range: int = 0,
+                            subfingerprint_length: int = 200,
+                            col_stride: int = 4,
+                            n_candidates: int = 16,
+                            refine_radius: int = 2,
+                            device: torch.device | str = DEFAULT_DEVICE) -> torch.Tensor:
+    """Hierarchical coarse -> fine long matcher.
+
+    Coarse pass: every offset's score estimated from every
+    ``col_stride``-th query subfingerprint (the offset axis stays at full
+    resolution).  Fine pass: the ``n_candidates`` best coarse offsets
+    (ties to the lower offset, as ``lax.top_k``) and their
+    ±``refine_radius`` neighbours re-scored exactly with every column; the
+    result is the maximum over that set.  Equal to the full scan whenever
+    the true argmax survives the coarse top-k (use ``match_long_padded``
+    for a guaranteed-exact score).  Same contract as ``match_long_padded``:
+    fp1 is the longer side, zero-padded."""
+    from lbaudiodetective_torch.ops.match_packed import _descending
+
+    device, (pos1, neg1, pos2, neg2), (n1, n2) = _long_inputs(
+        pos1, neg1, n1, pos2, neg2, n2, device, "match_long_hierarchical")
+    s1, pairs = pos1.shape
+    s2 = pos2.shape[0]
+    mask = torch.from_numpy(_pair_mask(pairs, comparison_range,
+                                       subfingerprint_length)).to(device)
+    p1 = pos1.to(torch.float32) * mask
+    q1 = neg1.to(torch.float32) * mask
+    w = (p1 + q1).sum(-1)                                          # [S1]
+    inv_w = torch.where(w > 0.0, 1.0 / torch.clamp(w, min=1.0), torch.zeros_like(w))
+
+    # -- coarse: subsampled columns, all offsets ------------------------------
+    cols = torch.arange(0, s2, col_stride, device=device)
+    hits_c = (torch.matmul(p1, pos2[cols].to(torch.float32).T)
+              + torch.matmul(q1, neg2[cols].to(torch.float32).T))  # [S1, Sc]
+    col_valid = (cols < n2).to(torch.float32)
+    sim_c = hits_c * inv_w[:, None] * col_valid[None, :]
+    # d_c[o] = sum_j sim_c[o + cols[j], j]: rows zero-padded by S2, term
+    # stride col_stride rows + 1.  The reference's circular rolls differ
+    # only past S1, at offsets the mask drops.
+    sc = sim_c.shape[1]
+    padded = F.pad(sim_c, (0, 0, 0, s2))
+    d_c = _sum_in_order(_diagonal_view(padded, s1, sc, sc, col_stride * sc + 1))
+    means_c = d_c / torch.clamp(col_valid.sum(), min=1.0)
+    o_valid = torch.arange(s1, device=device) <= (n1 - n2)
+    means_c = torch.where(o_valid, means_c, torch.full_like(means_c, -1.0))
+    cand = _descending(means_c)[:n_candidates]                      # [K]
+
+    # -- fine: exact re-score around each candidate ---------------------------
+    deltas = torch.arange(-refine_radius, refine_radius + 1, device=device)
+    offsets = (cand[:, None] + deltas[None, :]).reshape(-1)
+    o = torch.clamp(offsets, 0, s1 - s2)
+    rows = o[:, None] + torch.arange(s2, device=device)[None, :]   # [K*R, S2]
+    hits = ((p1[rows] * pos2.to(torch.float32)).sum(-1)
+            + (q1[rows] * neg2.to(torch.float32)).sum(-1))         # [K*R, S2]
+    i_valid = (torch.arange(s2, device=device) < n2).to(torch.float32)
+    sim = hits * inv_w[rows] * i_valid
+    means = sim.sum(-1) / torch.clamp(n2, min=1).to(torch.float32)
+    valid = (offsets >= 0) & (offsets <= n1 - n2)
+    score = torch.where(valid, means, torch.zeros_like(means)).amax()
+    return torch.where(n2 > 0, score, torch.zeros_like(score))

@@ -1,0 +1,502 @@
+"""Incremental streaming library matching: O(new subfingerprints) per tick
+(port of the JAX package's ``streaming/incremental.py``).
+
+The quirk-Q10 offset-slide score (LBAudioDetectiveFingerprint.m:119-176) is
+a max over banded-diagonal means, and each diagonal's sum is a running sum
+over query subfingerprints: a new subfingerprint only appends terms.  This
+module keeps those sums as device state:
+
+  orientation A (entry is fp1, used while n <= n_lib):
+      D_A[b, e, d] = sum_{i<n} hits[e, d+i, i] * inv_lib[e, d+i]
+  orientation B (query is fp1, used once n > n_lib):
+      D_B[b, e, d] = sum_{j<n_lib} hits[e, j, d+j] * inv_q[d+j]
+
+so a tick costs O(k * S * L) for k new subfingerprints, whatever the
+stream's age.  Scores are bitwise equal to ``match_one_vs_many_padded`` on
+the accumulated planes, and so to the packed matcher (the match kernel on
+CUDA): hit counts are exact integers, each term is rounded once as a
+product and once as a sum, in that order (separate torch ops, never a fused
+multiply-add), and terms arrive in ascending arrival order, the order of
+``_both_orientation_scores``.
+
+The library planes are unpacked once, at construction, into one
+``[L * S, 2 * pairs]`` matrix (pos | neg, masked to the compared pairs)
+that every clone shares.  It is bf16, which holds every integer up to 256
+exactly, at half float32's bytes and on the tensor cores, whenever no hit
+count can pass 256: a count is at most ``pairs`` (150 at
+subfingerprint_length 300) when no entry sets both bits of a pair, as no
+extracted fingerprint does, and at most ``2 * pairs`` when one does
+(``FingerprintLibrary.from_arrays`` and ``load`` accept such planes, and a
+posted query may hold them too).  Otherwise the planes are float32.
+The state is ``batch * L * (S + n_cap) * 4`` bytes (256 streams x 16,384
+entries x (56 + 256) diagonals: 5.4 GB).
+The reference's mesh-sharded library is not ported here.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lbaudiodetective_torch.config import FingerprintConfig
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, library_device
+from lbaudiodetective_torch.ops.match import _pair_mask
+from lbaudiodetective_torch.ops.match_packed import _descending
+
+#: Largest hit count up to which bf16 holds every integer exactly.
+BF16_EXACT_HITS = 256
+
+
+def _unpack_words(words: torch.Tensor, pairs: int) -> torch.Tensor:
+    """``[..., W]`` int32 words -> ``[..., pairs]`` {0, 1} uint8 bits
+    (little-endian bit order, ``utils.packing.unpack_bits``)."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[..., None] >> shifts) & 1                  # [..., W, 32]
+    return bits.reshape(*words.shape[:-1], -1)[..., :pairs].to(torch.uint8)
+
+
+def _inv_possible(w: torch.Tensor) -> torch.Tensor:
+    return torch.where(w > 0.0, 1.0 / torch.clamp(w, min=1.0), torch.zeros_like(w))
+
+
+def _fold_one(d_a: torch.Tensor, d_b: torch.Tensor, h_t: torch.Tensor,
+              inv_lib: torch.Tensor, lib_row_valid: torch.Tensor,
+              inv_q_t: torch.Tensor, slots, i: int) -> None:
+    """Add arrival ``i``'s terms of the streams ``slots`` (a slice or an
+    index tensor) into their accumulators, in place.  ``h_t`` ``[G', L, S]``
+    holds their hit counts, ``inv_q_t`` ``[G']`` their query reciprocal."""
+    s = d_a.shape[-1]
+    if i < s:
+        # Orientation A: column i adds sim_a[e, d + i] to diagonal d.
+        col = h_t[..., i:] * inv_lib[:, i:]
+        d_a[slots, :, :s - i] += col
+    # Orientation B: library row j adds to diagonal d = i - j (j <= i,
+    # d < n_cap: the caller has grown the state to hold age i + 1).
+    lo = max(0, i - s + 1)
+    row = h_t[..., :i - lo + 1] * inv_q_t[:, None, None]
+    row = row * lib_row_valid[:, :i - lo + 1]
+    d_b[slots, :, lo:i + 1] += row.flip(-1)
+
+
+def _scores_group(d_a: torch.Tensor, d_b: torch.Tensor, n_lib: torch.Tensor,
+                  n: torch.Tensor) -> torch.Tensor:
+    """``[G, L]`` scores from the accumulators (selection and masks as in
+    ``ops.match._both_orientation_scores``).  ``n`` is the stream age:
+    ``[1]`` for lockstep streams or ``[G]`` per slot."""
+    s, d_cap = d_a.shape[-1], d_b.shape[-1]
+    dev = d_a.device
+    nn = n.reshape(-1, 1)                                    # [1, 1] or [G, 1]
+    means_a = d_a / torch.clamp(nn, min=1).to(torch.float32)[..., None]
+    valid_a = torch.arange(s, device=dev)[None, None, :] <= (n_lib[None, :] - nn)[..., None]
+    score_a = torch.where(valid_a, means_a, torch.zeros_like(means_a)).amax(-1)
+    score_a = torch.where(nn > 0, score_a, torch.zeros_like(score_a))
+    means_b = d_b / torch.clamp(n_lib, min=1).to(torch.float32)[None, :, None]
+    valid_b = torch.arange(d_cap, device=dev)[None, None, :] <= (nn - n_lib[None, :])[..., None]
+    score_b = torch.where(valid_b, means_b, torch.zeros_like(means_b)).amax(-1)
+    score_b = torch.where(n_lib[None, :] > 0, score_b, torch.zeros_like(score_b))
+    return torch.where(n_lib[None, :] < nn, score_b, score_a)
+
+
+def _top_k(scores: torch.Tensor, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Descending top-k of each row, ties to the lower index (``lax.top_k``;
+    ``argmax`` returns the first maximum)."""
+    idx = scores.argmax(1, keepdim=True) if k == 1 else _descending(scores)[:, :k]
+    return (torch.gather(scores, 1, idx).cpu().numpy(), idx.cpu().numpy())
+
+
+def _library_state_key(library, g: int, l: int, s: int, batch: int, pairs: int,
+                       comparison_range: int, subfingerprint_length: int) -> str:
+    """Library-content + geometry hash guarding checkpoint restores.  The
+    words' bytes are the JAX package's (the same uint32 bit patterns, held
+    as int32), so a checkpoint restores in either package."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(library.pos_words.cpu().numpy()).tobytes())
+    h.update(np.ascontiguousarray(library.neg_words.cpu().numpy()).tobytes())
+    h.update(np.ascontiguousarray(library.counts.cpu().numpy()).tobytes())
+    h.update(f"{g},{l},{s},{batch},{pairs},{comparison_range},"
+             f"{subfingerprint_length}".encode())
+    return h.hexdigest()[:16]
+
+
+def _planes(x, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.uint8, device=device)
+
+
+class IncrementalLibraryMatcher:
+    """Running Q10 scores of ``batch`` growing queries vs a library.
+
+    ``update(new_pos, new_neg, k_valid)`` folds the next ``k_valid``
+    subfingerprints of every stream in (arrays or tensors, which may be
+    padded along the subfingerprint axis); ``scores()`` returns the
+    ``[batch, L]`` scores of each stream's accumulated fingerprint, bitwise
+    equal to ``match_one_vs_many_padded`` on those planes.
+
+    ``n_cap`` is the initial orientation-B diagonal capacity; a stream that
+    outgrows it doubles it (new diagonal slots are zeros, so this is exact;
+    see :meth:`_grow`).  ``grow=False`` raises past ``n_cap`` instead.
+    ``stream_group`` > 0 processes streams in groups of that size (bounding
+    the ``[G, k, L, S]`` hit transient); the state is held per group.  The
+    matcher runs on the library's device, which must be ``device``.
+    """
+
+    def __init__(self, library, batch: int, n_cap: int = 256,
+                 config: FingerprintConfig | None = None,
+                 comparison_range: int = 0, stream_group: int = 0,
+                 grow: bool = True, device: torch.device | str = DEFAULT_DEVICE):
+        self.device = library_device(library, device, "IncrementalLibraryMatcher")
+        self.config = config or FingerprintConfig()
+        self.library = library
+        self.batch = batch
+        self.n_cap = n_cap
+        self.grow = grow
+        self.comparison_range = comparison_range
+        g = stream_group or batch
+        if batch % g:
+            raise ValueError("stream_group must divide batch")
+        self.group = g
+        self.pairs = pairs = library.pairs
+        l, s, _ = library.pos_words.shape
+        mask = torch.from_numpy(_pair_mask(pairs, comparison_range,
+                                           self.config.subfingerprint_length)).to(self.device)
+        self._mask = mask
+        lp = _unpack_words(library.pos_words, pairs) * mask.to(torch.uint8)
+        ln = _unpack_words(library.neg_words, pairs) * mask.to(torch.uint8)
+        # A hit count is lp . qp + ln . qn over the pairs: at most ``pairs``
+        # while no entry sets both bits of a pair, whatever the query holds.
+        max_hits = 2 * pairs if bool((lp & ln).any()) else pairs
+        self._dtype = torch.bfloat16 if max_hits <= BF16_EXACT_HITS else torch.float32
+        #: ``[L * S, 2 * pairs]``: hits = planes @ [qp | qn].T, exact.
+        self._lib_planes = torch.cat([lp, ln], dim=-1).reshape(l * s, 2 * pairs).to(self._dtype)
+        w_lib = (lp + ln).sum(-1, dtype=torch.int32).to(torch.float32)
+        self._inv_lib = _inv_possible(w_lib)                            # [L, S]
+        self._n_lib = library.counts
+        self._lib_row_valid = (torch.arange(s, device=self.device)[None, :]
+                               < library.counts[:, None]).to(torch.float32)
+        self._geom = (g, l, s)
+        self._state = [self._zero_state() for _ in range(batch // g)]
+        self.n = 0
+
+    def _zero_state(self) -> tuple[torch.Tensor, torch.Tensor]:
+        g, l, s = self._geom
+        return (torch.zeros((g, l, s), dtype=torch.float32, device=self.device),
+                torch.zeros((g, l, self.n_cap), dtype=torch.float32, device=self.device))
+
+    def clone_empty(self) -> "IncrementalLibraryMatcher":
+        """A fresh-state matcher sharing this one's device-resident library
+        planes (the expensive part).  Serving keeps one template per
+        library and mints per-session clones from it."""
+        new = object.__new__(IncrementalLibraryMatcher)
+        new.__dict__.update(self.__dict__)
+        new._state = [new._zero_state() for _ in range(self.batch // self.group)]
+        new.n = 0
+        return new
+
+    def _grow(self, needed: int, what: str) -> None:
+        """Make room for stream age ``needed``.  Appending zero diagonal
+        slots is exact: diagonal ``d`` receives terms only from arrivals
+        ``i`` in ``[d, d + S)``, so every slot at ``d >= n`` is still zero
+        at age ``n``."""
+        if needed <= self.n_cap:
+            return
+        if not self.grow:
+            raise ValueError(f"{what} {needed} exceeds n_cap={self.n_cap}")
+        new_cap = max(self.n_cap * 2, needed)
+        self._state = [(d_a, F.pad(d_b, (0, new_cap - self.n_cap)))
+                       for d_a, d_b in self._state]
+        self.n_cap = new_cap
+
+    def _hits(self, qp: torch.Tensor, qn: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``[G, k, pairs]`` query planes -> hit counts ``[G, k, L, S]`` in
+        the planes' type (exact integers; each fold multiplies them in
+        float32) and the queries' reciprocal possible hits ``[G, k]``."""
+        g, k, pairs = qp.shape
+        _, l, s = self._geom
+        q = torch.cat([qp, qn], dim=-1).reshape(g * k, 2 * pairs).to(self._dtype)
+        hits = torch.matmul(q, self._lib_planes.T).reshape(g, k, l, s)
+        w_q = ((qp + qn) * self._mask.to(torch.uint8)).sum(-1, dtype=torch.int32)
+        return hits, _inv_possible(w_q.to(torch.float32))
+
+    def update(self, new_pos, new_neg, k_valid: int | None = None) -> None:
+        """new_pos/new_neg: ``[batch, k, pairs]`` uint8 (zero-padded beyond
+        ``k_valid``); every stream advances by ``k_valid`` (the lockstep
+        extractor's contract)."""
+        k = int(new_pos.shape[1])
+        k_valid = k if k_valid is None else int(k_valid)
+        self._grow(self.n + k_valid, "stream age")
+        if k_valid:
+            g = self.group
+            qp_all = _planes(new_pos, self.device)[:, :k_valid]
+            qn_all = _planes(new_neg, self.device)[:, :k_valid]
+            for gi, (d_a, d_b) in enumerate(self._state):
+                hits, inv_q = self._hits(qp_all[gi * g:(gi + 1) * g],
+                                         qn_all[gi * g:(gi + 1) * g])
+                for t in range(k_valid):
+                    _fold_one(d_a, d_b, hits[:, t], self._inv_lib, self._lib_row_valid,
+                              inv_q[:, t], slice(None), self.n + t)
+        self.n += k_valid
+
+    def update_bucketed(self, new_pos, new_neg) -> None:
+        """The reference's update with ``k`` padded to a power of two, which
+        bounds its jit shapes.  Nothing compiles per shape here, so this is
+        :meth:`update` of all ``k`` columns."""
+        self.update(new_pos, new_neg)
+
+    # -- slot (asynchronous-session) interface -------------------------------
+    #
+    # Each stream (slot) advances by its own count from its own age in one
+    # batched call: the device-side primitive of pooled live sessions.  The
+    # ages are the caller's: ``self.n`` is not used.
+
+    def update_slots(self, new_pos, new_neg, k_valid, base) -> None:
+        """Fold ``k_valid[g]`` new subfingerprints of slot ``g`` (arriving at
+        ages ``base[g] .. base[g] + k_valid[g] - 1``) for every slot at
+        once; idle slots pass ``k_valid[g] = 0``.  Needs single-group state
+        (``stream_group`` unset).  Slots folding the same arrival index
+        share one set of ops."""
+        if len(self._state) != 1:
+            raise ValueError("slot updates need single-group state "
+                             "(stream_group=0)")
+        k_valid = np.asarray(k_valid, np.int64)
+        base = np.asarray(base, np.int64)
+        self._grow(int((base + k_valid).max()) if k_valid.size else 0, "slot age")
+        k_max = int(k_valid.max()) if k_valid.size else 0
+        if k_max == 0:
+            return
+        d_a, d_b = self._state[0]
+        hits, inv_q = self._hits(_planes(new_pos, self.device)[:, :k_max],
+                                 _planes(new_neg, self.device)[:, :k_max])
+        for t in range(k_max):
+            live = np.flatnonzero(k_valid > t)
+            for i in np.unique(base[live] + t):
+                sel = live[base[live] + t == i]
+                if sel.size == self.batch:
+                    slots = slice(None)
+                else:
+                    slots = torch.from_numpy(sel).to(self.device)
+                _fold_one(d_a, d_b, hits[slots, t], self._inv_lib, self._lib_row_valid,
+                          inv_q[slots, t], slots, int(i))
+
+    def scores_slots(self, ages) -> np.ndarray:
+        """``[batch, L]`` scores at per-slot ages ``ages`` (``[batch]``)."""
+        d_a, d_b = self._state[0]
+        ages = torch.as_tensor(np.asarray(ages, np.int64), device=self.device)
+        return _scores_group(d_a, d_b, self._n_lib, ages).cpu().numpy()
+
+    def top_k_slots(self, k: int, ages) -> tuple[np.ndarray, np.ndarray]:
+        """Device-side top-k at per-slot ages (see :meth:`top_k`)."""
+        d_a, d_b = self._state[0]
+        ages = torch.as_tensor(np.asarray(ages, np.int64), device=self.device)
+        return _top_k(_scores_group(d_a, d_b, self._n_lib, ages), min(k, self._geom[1]))
+
+    def reset_slot(self, slot: int) -> None:
+        """Zero one slot's accumulators (slot freed for a new session)."""
+        d_a, d_b = self._state[0]
+        d_a[slot] = 0.0
+        d_b[slot] = 0.0
+
+    # -- session persistence --------------------------------------------------
+    #
+    # The diagonal state fully determines the running scores and is small
+    # next to the library planes, so it round-trips through one npz per
+    # matcher, in the JAX package's format.
+
+    def _state_key(self) -> str:
+        """Geometry + library identity a restored state must match
+        (memoized; clones share it)."""
+        cached = self.__dict__.get("_state_key_cache")
+        if cached is None:
+            g, l, s = self._geom
+            cached = self._state_key_cache = _library_state_key(
+                self.library, g, l, s, self.batch, self.pairs,
+                self.comparison_range, self.config.subfingerprint_length)
+        return cached
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the diagonal state (all stream groups) and the stream
+        age; the library itself is not saved."""
+        arrays = {}
+        for gi, (d_a, d_b) in enumerate(self._state):
+            arrays[f"da_{gi}"] = d_a.cpu().numpy()
+            arrays[f"db_{gi}"] = d_b.cpu().numpy()
+        np.savez(path, n=np.int64(self.n), n_groups=np.int64(len(self._state)),
+                 state_key=np.bytes_(self._state_key().encode()), **arrays)
+
+    def restore_state(self, path: str) -> None:
+        """Load a checkpoint of :meth:`save_state` (either package's) into
+        this matcher.  Raises ``ValueError`` on a geometry or library
+        mismatch; the orientation-B capacity becomes the checkpoint's."""
+        with np.load(path) as z:
+            if bytes(z["state_key"]).decode() != self._state_key():
+                raise ValueError("session state was saved against a different library "
+                                 "or stream geometry")
+            n_groups = int(z["n_groups"])
+            if n_groups != len(self._state):
+                raise ValueError("stream group count mismatch")
+            self._state = [(torch.from_numpy(z[f"da_{gi}"]).to(self.device),
+                            torch.from_numpy(z[f"db_{gi}"]).to(self.device))
+                           for gi in range(n_groups)]
+            self.n_cap = int(self._state[0][1].shape[-1])
+            self.n = int(z["n"])
+
+    def scores(self) -> np.ndarray:
+        """``[batch, L]`` running match scores."""
+        n = torch.tensor([self.n], device=self.device)
+        return torch.cat([_scores_group(d_a, d_b, self._n_lib, n)
+                          for d_a, d_b in self._state]).cpu().numpy()
+
+    def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """Device-side top-k: ``([batch, k] scores, [batch, k] indices)``,
+        descending, ties to the lowest index; fetches ``k`` values a stream
+        instead of the ``[batch, L]`` plane."""
+        n = torch.tensor([self.n], device=self.device)
+        scores = torch.cat([_scores_group(d_a, d_b, self._n_lib, n)
+                            for d_a, d_b in self._state])
+        return _top_k(scores, min(k, self._geom[1]))
+
+
+class StreamSessionPool:
+    """N asynchronous live-recognition sessions sharing one slot-batched
+    matcher.
+
+    Posts are queued and all of them fold in one ``update_slots`` call per
+    :meth:`flush`, with every slot's result in one ``top_k_slots``; each
+    slot's scores are bitwise equal to a dedicated per-session matcher (its
+    terms accumulate in its own ascending arrival order).
+
+    ``open(sid)`` binds a session to a free slot; ``post`` queues
+    increments; ``flush`` folds them; ``top_k`` / ``scores_for`` read
+    results; ``close`` frees and zeroes the slot.  Thread safety is the
+    caller's (the serving edge serialises on its session lock).
+    """
+
+    def __init__(self, library, slots: int = 64, n_cap: int = 256,
+                 config: FingerprintConfig | None = None,
+                 comparison_range: int = 0, device: torch.device | str = DEFAULT_DEVICE):
+        self._m = IncrementalLibraryMatcher(
+            library, batch=slots, n_cap=n_cap, config=config,
+            comparison_range=comparison_range, device=device)
+        self.slots = slots
+        self._free = list(range(slots - 1, -1, -1))
+        self._slot: dict[str, int] = {}
+        self._age = np.zeros(slots, np.int64)
+        self._pending: dict[str, list[tuple[np.ndarray, np.ndarray]]] = {}
+
+    def __len__(self) -> int:
+        return len(self._slot)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def open(self, sid: str) -> int:
+        if sid in self._slot:
+            raise ValueError(f"session {sid!r} already open")
+        if not self._free:
+            raise RuntimeError("no free session slots")
+        slot = self._free.pop()
+        self._slot[sid] = slot
+        return slot
+
+    def age(self, sid: str) -> int:
+        """Folded subfingerprints of a session (pending posts excluded)."""
+        return int(self._age[self._slot[sid]])
+
+    def pending(self, sid: str) -> int:
+        """Queued-but-unflushed subfingerprints of a session."""
+        return sum(p.shape[0] for p, _ in self._pending.get(sid, ()))
+
+    def post(self, sid: str, pos: np.ndarray, neg: np.ndarray) -> None:
+        """Queue ``[k, pairs]`` new subfingerprints for a session."""
+        if sid not in self._slot:
+            raise KeyError(f"unknown session {sid!r}")
+        if pos.shape[0]:
+            self._pending.setdefault(sid, []).append(
+                (np.asarray(pos, np.uint8), np.asarray(neg, np.uint8)))
+
+    def flush(self) -> int:
+        """Fold every queued post in one batched call; returns the number
+        of sessions that advanced."""
+        if not self._pending:
+            return 0
+        merged = {sid: (np.concatenate([p for p, _ in parts]),
+                        np.concatenate([q for _, q in parts]))
+                  for sid, parts in self._pending.items()}
+        k_max = max(p.shape[0] for p, _ in merged.values())
+        qp = np.zeros((self.slots, k_max, self._m.pairs), np.uint8)
+        qn = np.zeros_like(qp)
+        k_valid = np.zeros(self.slots, np.int64)
+        for sid, (p, q) in merged.items():
+            g = self._slot[sid]
+            qp[g, :p.shape[0]] = p
+            qn[g, :q.shape[0]] = q
+            k_valid[g] = p.shape[0]
+        self._m.update_slots(qp, qn, k_valid, self._age)
+        self._age = self._age + k_valid
+        self._pending.clear()
+        return len(merged)
+
+    def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """``([slots, k] scores, [slots, k] indices)`` at the current ages:
+        one call for every session."""
+        return self._m.top_k_slots(k, self._age)
+
+    def scores_for(self, sid: str) -> np.ndarray:
+        """``[L]`` scores of one session (flushed state)."""
+        return self._m.scores_slots(self._age)[self._slot[sid]]
+
+    def close(self, sid: str) -> None:
+        """Free a session's slot (dropping unflushed posts) and zero its
+        state for reuse."""
+        slot = self._slot.pop(sid)
+        self._pending.pop(sid, None)
+        self._age[slot] = 0
+        self._m.reset_slot(slot)
+        self._free.append(slot)
+
+    # -- persistence (the per-session matcher's format) ------------------------
+
+    def _session_key(self) -> str:
+        cached = getattr(self, "_session_key_cache", None)
+        if cached is None:
+            _, l, s = self._m._geom
+            cached = self._session_key_cache = _library_state_key(
+                self._m.library, 1, l, s, 1, self._m.pairs,
+                self._m.comparison_range, self._m.config.subfingerprint_length)
+        return cached
+
+    def save_session(self, sid: str, path: str) -> None:
+        """Checkpoint one session's slot in the npz format a ``batch=1``
+        :class:`IncrementalLibraryMatcher` writes, so pooled and
+        per-session servers restore each other's checkpoints.  Flush
+        first: unflushed posts are not device state."""
+        if self._pending.get(sid):
+            raise ValueError("flush before saving (pending posts)")
+        slot = self._slot[sid]
+        d_a, d_b = self._m._state[0]
+        np.savez(path, n=np.int64(self._age[slot]), n_groups=np.int64(1),
+                 state_key=np.bytes_(self._session_key().encode()),
+                 da_0=d_a[slot:slot + 1].cpu().numpy(),
+                 db_0=d_b[slot:slot + 1].cpu().numpy())
+
+    def restore_session(self, sid: str, path: str) -> None:
+        """Restore a single-session checkpoint into an open session's slot
+        (the pool grows to a larger checkpoint's capacity; a smaller one is
+        zero-padded: both exact)."""
+        slot = self._slot[sid]
+        with np.load(path) as z:
+            if bytes(z["state_key"]).decode() != self._session_key():
+                raise ValueError("session state was saved against a different library "
+                                 "or stream geometry")
+            new_a, new_b = z["da_0"][0], z["db_0"][0]
+            n = int(z["n"])
+        m = self._m
+        m._grow(new_b.shape[-1], "checkpoint capacity")
+        d_a, d_b = m._state[0]
+        d_a[slot] = torch.from_numpy(new_a).to(m.device)
+        d_b[slot] = 0.0
+        d_b[slot, :, :new_b.shape[-1]] = torch.from_numpy(new_b).to(m.device)
+        self._age[slot] = n

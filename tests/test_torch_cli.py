@@ -1,11 +1,14 @@
 """The port's CLI (``python -m lbaudiodetective_torch``) vs the JAX
 package's on WAV files written from a seed: enroll, then identify with
-and without ``--top-k``, on the CPU (``--device cpu``).
+and without ``--top-k``; compare, also ``--algorithm maa``; ``serve``'s
+flags and ``--sessions-dir``, and ``client``/``listen`` against a server
+in a thread; on the CPU (``--device cpu``).
 
 Tolerance: the printed scores (rounded to 4 digits) within 1e-4 of the
-JAX CLI's; the same track named."""
+JAX CLI's; the same track named; MAA counts and server answers equal."""
 
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -100,3 +103,101 @@ def test_fingerprint_compare_and_refusals(clips, tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["compare", a, a])               # the default device is cuda
+
+
+def test_compare_maa_equals_jax_cli(clips, capsys):
+    a, crop = str(clips / "tracks" / "b.wav"), str(clips / "crop_b.wav")
+    assert main(["compare", a, crop, "--algorithm", "maa", *CPU]) == 0
+    got = capsys.readouterr().out.strip()
+    assert jax_main(["compare", a, crop, "--algorithm", "maa"]) == 0
+    assert got == capsys.readouterr().out.strip()
+    assert int(got) >= 0
+    assert main(["compare", a, a, "--algorithm", "afa", *CPU]) == 0
+    assert capsys.readouterr().out.strip() == "1.0000"
+
+
+def test_serve_flags_reach_service(clips, tmp_path, monkeypatch):
+    from lbaudiodetective_torch import serving
+
+    lib = str(tmp_path / "lib.npz")
+    assert main(["enroll", str(clips / "tracks"), "-o", lib, *CPU]) == 0
+    captured = {}
+
+    def fake_serve_forever(service, host="0.0.0.0", port=8080):
+        captured.update(svc=service, host=host, port=port)
+
+    monkeypatch.setattr(serving, "serve_forever", fake_serve_forever)
+    assert main(["serve", "--library", lib, "--port", "9999", "--batch-window", "0.25",
+                 "--max-batch", "4", "--n-sub-cap", "48", "--search-threshold", "2",
+                 "--top-k", "3", "--stream-pool", "--stream-flush-window", "0.1", *CPU]) == 0
+    svc = captured["svc"]
+    assert captured["port"] == 9999 and svc.names == ["a", "b", "c"]
+    assert (svc.batch_window_s, svc.max_batch, svc.n_sub_cap) == (0.25, 4, 48)
+    assert (svc.search_threshold, svc.top_k) == (2, 3)
+    assert svc.stream_pool and svc.stream_flush_window_s == 0.1
+    assert svc.device == torch.device("cpu")
+    with pytest.raises(SystemExit):
+        main(["serve", "--library", lib, "--shard-library", "2", *CPU])
+
+
+def test_serve_sessions_dir_roundtrip(clips, tmp_path, monkeypatch):
+    from lbaudiodetective_torch import serving
+
+    lib = str(tmp_path / "lib.npz")
+    assert main(["enroll", str(clips / "tracks"), "-o", lib, *CPU]) == 0
+    sess_dir = str(tmp_path / "sessions")
+    state = {}
+
+    def serve_and_open(service, host="0.0.0.0", port=8080):
+        state["sid"] = service.stream_open()["session"]
+        service.stream_update(state["sid"], ("01" * 100).encode())
+
+    def serve_and_check(service, host="0.0.0.0", port=8080):
+        state["n"] = service._sessions[state["sid"]]["m"].n
+
+    monkeypatch.setattr(serving, "serve_forever", serve_and_open)
+    assert main(["serve", "--library", lib, "--sessions-dir", sess_dir, *CPU]) == 0
+    monkeypatch.setattr(serving, "serve_forever", serve_and_check)
+    assert main(["serve", "--library", lib, "--sessions-dir", sess_dir, *CPU]) == 0
+    assert state["n"] == 1
+
+
+def test_client_and_listen_against_a_server(clips, tmp_path, capsys):
+    """The port's client and listen, and the JAX package's client, against
+    the port's server in a thread: equal answers, the streamed result equal
+    to the one-shot identification."""
+    from lbaudiodetective_torch.__main__ import _load_library
+    from lbaudiodetective_torch.serving import IdentificationService, make_server
+
+    lib_path = str(tmp_path / "lib.npz")
+    assert main(["enroll", str(clips / "tracks"), "-o", lib_path, *CPU]) == 0
+    srv = make_server(IdentificationService(*_load_library(lib_path, "cpu"), device="cpu"))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    crop = str(clips / "crop_b.wav")
+    try:
+        capsys.readouterr()
+        assert main(["client", crop, "--url", url, *CPU]) == 0
+        out = json.loads(capsys.readouterr().out)
+        assert out["track"] == "b" and set(out["scores"]) == {"a", "b", "c"}
+        assert jax_main(["client", crop, "--url", url]) == 0
+        assert json.loads(capsys.readouterr().out) == out
+        assert main(["client", crop, "--url", url, "--fingerprint", *CPU]) == 0
+        fp = json.loads(capsys.readouterr().out)
+        assert fp["n"] > 0 and set(fp["fingerprint"]) <= {"0", "1", "+"}
+        assert main(["client", crop, "--url", url, "--local-extract", *CPU]) == 0
+        assert json.loads(capsys.readouterr().out) == out
+        assert main(["listen", crop, "--url", url, "--chunk", "3", *CPU]) == 0
+        streamed = json.loads(capsys.readouterr().out)
+        assert streamed["track"] == "b" and streamed["score"] == out["score"]
+        assert streamed["n"] == fp["n"]
+        assert main(["client", crop, "--url", url + "/nope", *CPU]) == 1
+        for cmd in ("client", "listen"):
+            assert main([cmd, crop, "--url", "http://127.0.0.1:1", "--timeout", "2",
+                         *CPU]) == 2
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()

@@ -31,7 +31,7 @@ from lbaudiodetective_torch.ops.match_packed import _mask_pairs, pack_bits_devic
 from tests._torch_common import (  # noqa: E402,F401
     H100_SMEM_BYTES, band_rows_layout, bit_agreement, brown_noise, cuda_device,
     match_packed_layout, non_finite_audio, numpy_select, ragged_case, select_cases,
-    synth_clip)
+    sign_planes, synth_clip)
 
 pytestmark = pytest.mark.cuda
 
@@ -442,3 +442,65 @@ def test_cuda_library_search_equals_match_and_cpu(cuda_device):
     cidx, cscores = cpu.search(query, top_k=3, shortlist=64)
     np.testing.assert_array_equal(idx, cidx)
     np.testing.assert_allclose(scores, cscores, rtol=0, atol=1e-6)
+
+
+def test_incremental_matcher_on_card_equals_match_many(cuda_device):
+    """Running diagonal sums on the card, slot-batched and lockstep, bit-equal
+    to the match kernel (``FingerprintLibrary.match_many``) on the
+    accumulated fingerprints after every post."""
+    from lbaudiodetective_torch.models.fingerprint import Fingerprint
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.streaming.incremental import (
+        IncrementalLibraryMatcher, StreamSessionPool)
+
+    _, _, _, lib_pos, lib_neg, n_lib = ragged_case(33, 100, l=300, nq=40)
+    fps = [Fingerprint(p[:n], q[:n]) for p, q, n in zip(lib_pos, lib_neg, n_lib)]
+    lib = FingerprintLibrary.from_fingerprints(fps, device=cuda_device)
+    sp, sn = sign_planes(np.random.default_rng(5), (3, 48, 100))
+    sp[0, 4:4 + n_lib[7]], sn[0, 4:4 + n_lib[7]] = lib_pos[7, :n_lib[7]], lib_neg[7, :n_lib[7]]
+    streams = [Fingerprint(sp[i], sn[i]) for i in range(3)]
+    inc = IncrementalLibraryMatcher(lib, batch=3, n_cap=8, stream_group=1, device=cuda_device)
+    pool = StreamSessionPool(lib, slots=3, n_cap=8, device=cuda_device)
+    for i in range(3):
+        pool.open(str(i))
+    n = 0
+    for k in (5, 1, 8, 13, 21):
+        n_new = min(n + k, 48)
+        planes = [sp[:, n:n_new], sn[:, n:n_new]]
+        inc.update(*planes)
+        for i in range(3):
+            pool.post(str(i), planes[0][i], planes[1][i])
+        pool.flush()
+        n = n_new
+        want = lib.match_many([Fingerprint(f.pos[:n], f.neg[:n]) for f in streams])
+        np.testing.assert_array_equal(inc.scores(), want)
+        np.testing.assert_array_equal(pool._m.scores_slots(pool._age), want)
+        sc, ix = inc.top_k(2)
+        np.testing.assert_array_equal(ix, np.argsort(-want, axis=1, kind="stable")[:, :2])
+
+
+def test_streaming_identifier_full_mode_launches_the_match_kernel(cuda_device):
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.io.decode import DecodedAudio
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.models.detective import AudioDetective
+    from lbaudiodetective_torch.streaming import StreamingIdentifier
+
+    cfg = FingerprintConfig()
+    audio = brown_noise(12, 6, 3 * 5512)
+    clips = [DecodedAudio(a, 5512.0, 3 * 44100, 44100.0) for a in audio]
+    lib = FingerprintLibrary.from_fingerprints(
+        AudioDetective(cfg, device=cuda_device).process_decoded_batch(clips), cfg,
+        device=cuda_device)
+    results = {}
+    for mode in ("full", "incremental"):
+        ident = StreamingIdentifier(lib, 2, 1024, cfg, rematch=mode, device=cuda_device)
+        kernels.reset_launch_counts()
+        for s in range(audio.shape[1] // 1024):
+            ident.feed(audio[[3, 1], s * 1024:(s + 1) * 1024])
+        results[mode] = [(m.track, m.score) for m in ident.finalize()]
+        counts = kernels.launch_counts()
+        assert counts["fused_band_rows"] > 0
+        assert (counts["match_one_vs_many_fused"] > 0) == (mode == "full")
+    assert results["full"] == results["incremental"]
+    assert [t for t, _ in results["full"]] == [3, 1]

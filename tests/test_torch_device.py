@@ -19,6 +19,13 @@ from lbaudiodetective_torch.ops.extract import (  # noqa: E402
     FingerprintExtractor, extract_fingerprint, extract_fingerprint_batch, get_extractor)
 from lbaudiodetective_torch.ops.match import match_fingerprints  # noqa: E402
 from lbaudiodetective_torch.streaming import StreamingDetective, StreamingExtractor  # noqa: E402
+from lbaudiodetective_torch.models import maa  # noqa: E402
+from lbaudiodetective_torch.ops.match import (  # noqa: E402
+    match_long_hierarchical, match_long_padded)
+from lbaudiodetective_torch.serving import IdentificationService  # noqa: E402
+from lbaudiodetective_torch.streaming import StreamingIdentifier  # noqa: E402
+from lbaudiodetective_torch.streaming.incremental import (  # noqa: E402
+    IncrementalLibraryMatcher, StreamSessionPool)
 from tests._torch_common import synth_clip  # noqa: E402
 
 
@@ -31,6 +38,23 @@ def _fp(seed: int = 3, n: int = 6) -> Fingerprint:
 def _library_file(tmp_path) -> str:
     path = str(tmp_path / "lib.npz")
     FingerprintLibrary.from_fingerprints([_fp(), _fp(4)], device="cpu").save(path)
+    return path
+
+
+def _cpu_library() -> FingerprintLibrary:
+    return FingerprintLibrary.from_fingerprints([_fp(), _fp(4)], device="cpu")
+
+
+def _long_args():
+    fp1, fp2 = _fp(5, 16), _fp(6, 4)
+    return (fp1.pos, fp1.neg, 16, fp2.pos, fp2.neg, 4)
+
+
+def _wav(tmp) -> str:
+    from lbaudiodetective_torch.io.wav import write_wav
+
+    path = str(tmp / "tone.wav")
+    write_wav(path, np.sin(np.arange(44100) * 0.1).astype(np.float32), 44100)
     return path
 
 
@@ -61,6 +85,25 @@ ENTRY_POINTS = {
         compat.LBAudioDetectiveFingerprintCompareToFingerprint,
         lambda tmp: compat.LBAudioDetectiveFingerprintCompareToFingerprint(_fp(), _fp(4), 37)),
     "Fingerprint.compare": (Fingerprint.compare, lambda tmp: _fp().compare(_fp(4))),
+    "IncrementalLibraryMatcher": (IncrementalLibraryMatcher, lambda tmp: IncrementalLibraryMatcher(
+        _cpu_library(), batch=1)),
+    "StreamSessionPool": (StreamSessionPool, lambda tmp: StreamSessionPool(_cpu_library())),
+    "StreamingIdentifier": (StreamingIdentifier, lambda tmp: StreamingIdentifier(
+        _cpu_library(), batch=1)),
+    "IdentificationService": (IdentificationService, lambda tmp: IdentificationService(
+        _cpu_library(), ["a", "b"])),
+    "match_long_padded": (match_long_padded, lambda tmp: match_long_padded(
+        *_long_args(), chunk=16)),
+    "match_long_hierarchical": (match_long_hierarchical, lambda tmp: match_long_hierarchical(
+        *_long_args())),
+    "maa.maa_subfingerprints": (maa.maa_subfingerprints, lambda tmp: maa.maa_subfingerprints(
+        np.zeros(2048, np.float32), 44100.0)),
+    "maa.maa_match_count": (maa.maa_match_count, lambda tmp: maa.maa_match_count(
+        np.zeros((3, 5)), np.zeros((2, 5)))),
+    "maa.maa_fingerprint_file": (maa.maa_fingerprint_file, lambda tmp: maa.maa_fingerprint_file(
+        _wav(tmp))),
+    "maa.maa_compare_audio_files": (maa.maa_compare_audio_files,
+                                    lambda tmp: maa.maa_compare_audio_files(_wav(tmp), _wav(tmp))),
 }
 
 
