@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's extract -> match path, its packed library
 path, every extraction config, the C-API layer, 256-stream streaming, the
 HTTP identification service with live sessions, the streaming identifier,
-MAA and the long matchers once on one GPU.
+MAA, the long matchers and the sharded layer once on one GPU.
 
     python3 chip_smoke.py
 
@@ -108,6 +108,31 @@ Phases (each failed check raises, and the script exits non-zero):
    chunks of 512) against a 10 s query planted with 10 % of its bits
    flipped: within 1e-6 of ``match_fingerprints``, and
    ``match_long_hierarchical`` finding the same peak.
+12. The sharded layer (``parallel/``) on a mesh of 4 slots of the one card,
+   each path held to its unsharded run: (a) phase 6's 1M library (rebuilt
+   from its seed) as a 4-way
+   ``ShardedFingerprintLibrary`` (the shards views): ``match`` of the 16
+   planted queries bit-equal to ``FingerprintLibrary.match``; ``search``
+   and ``search_many`` x8 with the library's top-1 and score, every score
+   exact and none below the library's at its rank (each shard shortlists
+   its own 1,024); walls and extra peak memory; (b) ring dedup (k = 8) of
+   phase 9's 16,384 tracks: top-8 scores equal to one slot's, and scores
+   and indices equal to the top-8 of one [16,384, 16,384] launch (itself
+   equal to the plain matcher at 64 queries) taken in the ring's candidate
+   order (an equal score to the earlier ring step, as ``lax.top_k`` folds
+   it), every planted near-duplicate naming its original; (c) ring
+   all-pairs on 4,096 entries equal to one launch; (d) data-parallel
+   extraction of phase 5's clips bit-equal to its fingerprints; (e) the
+   time-sharded long match within 1e-5 of phase 11's; (f)
+   ``PipelinedIdentifier`` of 4 x 64 clips equal to ``match_many``, its
+   submits' host walls beside a serial loop; (g) ``DeviceSplitPipeline``
+   (extract on slots 0-1, match on 2-3) equal to (f); (h)
+   ``StreamingExtractor(mesh=...)`` on the aligned and conv steps bit-equal
+   to the unsharded extractor, no host wait, RTF beside phase 8's; (i) the
+   streaming identifier (both modes) and 8 concurrent ``/identify`` on the
+   sharded 16,384 library equal to phases 9-10.  The select, rows and
+   match kernels each launch in phase 12's sharded calls (the unsharded
+   references and plain versions are not counted).
 
 The last three lines are the kernels' JSON record (each kernel's time,
 its plain version's and, where one PyTorch call computes the same function,
@@ -1476,15 +1501,16 @@ def phase_service(dev, lib, names, payloads, wav_fps, fps, smi: str
     return out, counts
 
 
-def phase_stream_identify(dev, lib, clips, smi: str) -> tuple[dict, collections.Counter]:
+def phase_stream_identify(dev, lib, clips, smi: str
+                          ) -> tuple[dict, collections.Counter, dict]:
     """BASELINE config 4's size: 256 streams x 10 s against the 16,384-entry
     library, chunk 1024, a match every 4 subfingerprints, ``rematch="full"``
     (the match kernel, one launch a tick) and ``"incremental"`` in groups
     of 32.  Both name every planted stream's track, with equal winners and
     bit-equal scores after every chunk, and the match kernel's whole
     ``[256, 16,384]`` score plane at the last tick equals the incremental
-    matcher's (plain torch).  Returns the rates and the kernels' launch
-    counts over both runs."""
+    matcher's (plain torch).  Returns the rates, the kernels' launch
+    counts over both runs and each mode's winners after every chunk."""
     import numpy as np
     import torch
 
@@ -1540,13 +1566,14 @@ def phase_stream_identify(dev, lib, clips, smi: str) -> tuple[dict, collections.
           f"every stream names its planted track at entries {CLIP_AT[0]}-{CLIP_AT[-1]} "
           f"(scores {min(s for _, s, _ in final):.4f}-{max(s for _, s, _ in final):.4f}, "
           f"{final[0][2]} subfingerprints)")
-    return out, counts
+    return out, counts, runs
 
 
-def phase_maa_long(dev, rng, fps, smi: str) -> dict:
+def phase_maa_long(dev, rng, fps, smi: str) -> tuple[dict, tuple]:
     """MAA on two written 44.1 kHz WAVs, and the long matchers on a one-hour
     fp1 (LONG_SUBS subfingerprints, padded to LONG_CHUNK) against a 10 s
-    query planted with 10 % of its bits flipped at LONG_AT."""
+    query planted with 10 % of its bits flipped at LONG_AT.  Returns the
+    measurements and the long matchers' arguments (phase 12's long ring)."""
     import numpy as np
     import torch
 
@@ -1598,7 +1625,334 @@ def phase_maa_long(dev, rng, fps, smi: str) -> dict:
     check(abs(out["long_hierarchical"] - out["long_padded"]) <= MATCH_TOL,
           f"match_long_hierarchical finds the same peak: {out['long_hierarchical']:.7f} in "
           f"{out['long_hierarchical_ms']:.1f} ms ({smi})")
-    return out
+    return out, args
+
+
+N_SLOTS = 4                      # phase 12's mesh: slots on the one card
+DEDUP_ROWS = 64                  # rows of the dedup held to the plain matcher's columns
+RING_SLICE = 4096                # entries of phase 12c's ring all-pairs
+
+
+def ring_order_top_k(full, n: int, k: int):
+    """Each row's top-k of an all-pairs plane ``full`` in the candidate order
+    of a ring of ``n`` slots: slot d meets the blocks of slots d, d - 1, ...
+    (mod n) in turn, so an equal score goes to the earlier block, then the
+    lower index, as the reference's fold of ``[best | block]`` through
+    ``lax.top_k`` keeps it."""
+    import torch
+
+    l = full.shape[0] // n
+    scores, idx = [], []
+    for d in range(n):
+        perm = torch.cat([torch.arange(((d - s) % n) * l, ((d - s) % n + 1) * l)
+                          for s in range(n)]).to(full.device)
+        block = full[d * l:(d + 1) * l][:, perm]
+        order = torch.sort(block, dim=1, descending=True, stable=True).indices[:, :k]
+        scores.append(torch.gather(block, 1, order))
+        idx.append(perm[order])
+    return torch.cat(scores), torch.cat(idx)
+
+
+def phase_sharded(dev, big, svc, fps, clips, long_args, before: dict, smi: str
+                  ) -> tuple[dict, collections.Counter]:
+    """The sharded layer on one card: every path of ``parallel/`` on a mesh
+    of N_SLOTS slots of ``dev``, each held to its unsharded run.  ``big`` is
+    phase 6's 1M library and its 16 queries, ``svc`` phase 9's library,
+    names and WAV payloads, ``long_args`` phase 11's long planes,
+    ``before`` phases 8-11's results.  Returns the measurements and the
+    kernels' launch counts over the sharded calls only (the unsharded
+    references and the plain matcher are not counted)."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.ops import kernels
+    from lbaudiodetective_torch.ops.extract import required_padded_length
+    from lbaudiodetective_torch.ops.kernels.match_packed import (
+        match_one_vs_many_fused, match_one_vs_many_fused_plain)
+    from lbaudiodetective_torch.ops.match_packed import _mask_pairs
+    from lbaudiodetective_torch.parallel import (
+        ShardedFingerprintLibrary, extract_data_parallel, match_long_time_sharded)
+    from lbaudiodetective_torch.parallel.mesh import make_mesh, unshard
+    from lbaudiodetective_torch.parallel.pipeline import DeviceSplitPipeline, PipelinedIdentifier
+    from lbaudiodetective_torch.parallel.sharded_packed import (
+        ring_all_pairs_scores_packed, ring_dedup_topk_packed)
+    from lbaudiodetective_torch.serving import IdentificationService
+    from lbaudiodetective_torch.streaming import StreamingExtractor, StreamingIdentifier
+    from lbaudiodetective_torch.streaming.incremental import _unpack_words
+
+    print(f"[12] the sharded layer on one card: {N_SLOTS} slots on {dev}", flush=True)
+    cfg = FingerprintConfig()
+    out, counts = {}, collections.Counter()
+    lib_mesh = make_mesh(devices=[dev] * N_SLOTS, library_parallelism=N_SLOTS)   # (1, 4)
+    data_mesh = make_mesh(devices=[dev] * N_SLOTS, library_parallelism=1)        # (4, 1)
+    one = make_mesh(devices=[dev], library_parallelism=1)
+
+    def sharded(fn, *args, **kw):
+        """``fn`` with its kernel launches counted (a sharded call)."""
+        kernels.reset_launch_counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            counts.update(kernels.launch_counts())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3
+
+    # (a) The 1M library split four ways: views, no copy.
+    lib, queries = big
+    lib.search(queries[0])                 # the reference's own coarse planes, as in phase 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    slib = ShardedFingerprintLibrary(lib, lib_mesh)
+    check(all(p.data_ptr() == lib.pos_words[i * (N_BIG // N_SLOTS)].data_ptr()
+              for i, p in enumerate(slib.pos_shards)),
+          f"{N_SLOTS}-way ShardedFingerprintLibrary over {N_BIG:,} entries: shards are views")
+    walls = {"match": [], "match_sharded": [], "search": [], "search_sharded": []}
+    for q in queries:
+        ref, ms = timed(lambda: lib.match(q))
+        walls["match"].append(ms)
+        got, ms = timed(lambda: sharded(slib.match, q))
+        walls["match_sharded"].append(ms)
+        check_quiet(np.array_equal(got, ref), "sharded match bit-equal to the library's")
+    check(True, f"{len(queries)} planted queries: the sharded match bit-equal to the "
+                f"library's at all {N_BIG:,} entries")
+    mem_match = (torch.cuda.max_memory_allocated() - base) / 1e6
+    same_top5 = 0
+    for q in queries:
+        ref = lib.match(q)
+        (ri, rs), ms = timed(lambda: lib.search(q))
+        walls["search"].append(ms)
+        (gi, gs), ms = timed(lambda: sharded(slib.search, q))
+        walls["search_sharded"].append(ms)
+        # Each shard shortlists its own 1,024, a superset of the global
+        # shortlist's entries in it: the top-1 is the library's, every score
+        # is exact, and no rank scores below the library's.
+        check_quiet(int(gi[0]) == int(ri[0]) == int(np.argmax(ref)) and gs[0] == rs[0],
+                    "sharded search top-1 equal to the library's and the full scan's")
+        check_quiet(np.array_equal(gs, ref[gi]) and (gs >= rs).all(),
+                    "sharded search scores exact, none below the library's")
+        same_top5 += int(np.array_equal(gi, ri))
+    check(True, f"search of {len(queries)} planted queries: top-1 and its score equal to the "
+                f"library's and the full scan's, every score exact and >= the library's at "
+                f"its rank; {same_top5}/{len(queries)} top-5 lists equal")
+    gi, gs = sharded(slib.search_many, queries[:8])
+    ri, rs = lib.search_many(queries[:8])
+    check(np.array_equal(gi[:, 0], ri[:, 0]) and np.array_equal(gs[:, 0], rs[:, 0])
+          and (gs >= rs).all(), "search_many x8: top-1 equal to the library's, scores >= its")
+    mem_search = (torch.cuda.max_memory_allocated() - base) / 1e6
+    out["library"] = {k: float(np.median(v)) for k, v in walls.items()}
+    out["library"]["same_top5"] = same_top5
+    out["library"]["extra_peak_mb_match"] = mem_match
+    out["library"]["extra_peak_mb_search"] = mem_search
+    print(f"  1M match wall median {out['library']['match']:.3f} ms (library), "
+          f"{out['library']['match_sharded']:.3f} ms ({N_SLOTS} shards); search "
+          f"{out['library']['search']:.3f} / {out['library']['search_sharded']:.3f} ms; extra "
+          f"peak memory {mem_match:.1f} MB over the matches, {mem_search:.1f} MB with the "
+          f"shards' coarse planes ({smi})", flush=True)
+    del slib
+
+    # (b) Ring dedup over the service library, k = 8.
+    svc_lib, names, payloads = svc
+    words = (svc_lib.pos_words, svc_lib.neg_words, svc_lib.counts, svc_lib.pairs)
+    (dd_s, dd_i), ms = timed(lambda: sharded(ring_dedup_topk_packed, *words, lib_mesh, k=8))
+    dd_s, dd_i = unshard(dd_s), unshard(dd_i)
+    (one_s, one_i), ms_one = timed(lambda: ring_dedup_topk_packed(*words, one, k=8))
+    rows_tied = int((dd_i != one_i[0]).any(1).sum())
+    check(torch.equal(dd_s, one_s[0]),
+          f"ring dedup of {len(svc_lib):,} tracks on {N_SLOTS} slots: top-8 scores equal to 1 "
+          f"slot's ({ms:.1f} ms, 1 slot {ms_one:.1f} ms); indices differ on {rows_tied} rows, "
+          f"at equal scores (below)")
+    out["dedup_ms"], out["dedup_one_slot_ms"] = ms, ms_one
+    idx = dd_i.cpu().numpy()
+    planted = np.zeros(len(svc_lib), bool)
+    planted[CLIP_AT + WAV_AT] = True
+    copies = np.flatnonzero(~planted)
+    original = np.array(CLIP_AT)[copies % N_CLIPS]
+    check((idx[copies] == original[:, None]).any(1).all(),
+          f"each of {len(copies):,} planted near-duplicates names its original among its 8 "
+          f"(first for {(idx[copies, 0] == original).mean():.4f} of them)")
+    ok = 0
+    for c, at in enumerate(CLIP_AT):
+        dup = set(copies[copies % N_CLIPS == c].tolist())   # its unplanted noisy copies
+        cand = set(idx[at].tolist())
+        ok += cand <= dup if len(dup) >= 8 else dup <= cand
+    check(ok == N_CLIPS, f"each of the {N_CLIPS} originals' 8 candidates are its noisy copies "
+                         f"(all of them where it has fewer than 8 left)")
+    mask = _mask_pairs(svc_lib.pairs, 0, 200)
+    launch = match_one_vs_many_fused(*words[:3], *words[:3], mask)    # [query, entry]
+    rows = torch.tensor(CLIP_AT[:DEDUP_ROWS], device=dev)
+    plain = match_one_vs_many_fused_plain(words[0][rows], words[1][rows], words[2][rows],
+                                          *words[:3], mask)
+    check(torch.equal(plain, launch[rows]),
+          f"one [{len(svc_lib)}, {len(svc_lib)}] launch equal to the plain matcher at "
+          f"{DEDUP_ROWS} originals' queries")
+    full = launch.T.contiguous()                          # [i, j]: entry i slid, as the ring
+    full.fill_diagonal_(-torch.inf)
+    for mesh_n, (got_s, got_i) in ((N_SLOTS, (dd_s, dd_i)), (1, (one_s[0], one_i[0]))):
+        want_s, want_i = ring_order_top_k(full, mesh_n, 8)
+        check(torch.equal(got_s, want_s) and torch.equal(got_i, want_i),
+              f"ring dedup on {mesh_n} slot(s) equal to that launch's all-pairs top-8 at every "
+              f"row, indices included (ties to the earlier ring step, then the lower index)")
+    del launch, full, plain
+
+    # (c) Ring all-pairs on a 4,096-entry slice: one launch, transposed.
+    part = tuple(x[:RING_SLICE] for x in words[:3])
+    ring, ms = timed(lambda: unshard(sharded(ring_all_pairs_scores_packed, *part, svc_lib.pairs,
+                                             lib_mesh)))
+    launch = match_one_vs_many_fused(*part, *part, _mask_pairs(svc_lib.pairs, 0, 200))
+    check(torch.equal(ring, launch.T), f"ring all-pairs {list(ring.shape)} on {N_SLOTS} slots "
+                                       f"equal to one kernel launch ({ms:.1f} ms)")
+    out["ring_ms"] = ms
+
+    # (d) Data-parallel extraction of phase 5's clips.
+    n_rows = 56 * cfg.rows_per_frame
+    audio = np.zeros((len(clips), required_padded_length(cfg, n_rows)), np.float32)
+    for i, c in enumerate(clips):
+        audio[i, :len(c.samples)] = c.samples[:audio.shape[1]]
+    audio_d = torch.from_numpy(audio).to(dev)
+    valid = torch.full((len(clips),), 53, dtype=torch.int32, device=dev)
+    (pos, neg), ms = timed(lambda: sharded(extract_data_parallel, audio_d, valid, cfg, n_rows,
+                                           data_mesh))
+    pos, neg = unshard(pos).cpu().numpy(), unshard(neg).cpu().numpy()
+    check(all(np.array_equal(pos[i, :53], f.pos) and np.array_equal(neg[i, :53], f.neg)
+              for i, f in enumerate(fps)),
+          f"extract_data_parallel of {len(clips)} x {CLIP_SECONDS:g} s over {N_SLOTS} data "
+          f"slots bit-equal to phase 5's fingerprints ({ms:.1f} ms)")
+    out["extract_ms"] = ms
+
+    # (e) The long ring over phase 11's one-hour fingerprint.
+    score, ms = timed(lambda: sharded(match_long_time_sharded, *long_args, data_mesh))
+    ref = before["long_padded"]
+    check(abs(score - ref) <= 1e-5, f"match_long_time_sharded over {LONG_SUBS} subfingerprints "
+                                    f"on {N_SLOTS} slots: {score:.7f} (match_long_padded "
+                                    f"{ref:.7f}) in {ms:.1f} ms")
+    out["long_ms"] = ms
+
+    # (f) PipelinedIdentifier: four batches of 64 clips.
+    lib_planes = [_unpack_words(w, svc_lib.pairs).cpu().numpy() for w in words[:2]]
+    per = len(clips) // 4                                    # 64 clips a batch
+    batches = [(audio[i:i + per], np.full(per, 53, np.int64)) for i in range(0, 4 * per, per)]
+    want = [svc_lib.match_many(fps[i:i + per]) for i in range(0, 4 * per, per)]
+    pipe = PipelinedIdentifier(*lib_planes, svc_lib.counts.cpu().numpy(), cfg, device=dev)
+    list(pipe.run(batches[:2]))                              # warm-up
+    submit_ms, got = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for b in batches:
+        t1 = time.perf_counter()
+        r = pipe.submit(*b)
+        submit_ms.append((time.perf_counter() - t1) * 1e3)
+        if r is not None:
+            got.append(r)
+    got.append(pipe.drain())
+    total = (time.perf_counter() - t0) * 1e3
+    counts.update(kernels.launch_counts())
+    t0 = time.perf_counter()
+    for b in batches:
+        pipe._match(*pipe._extract(*b), b[1]).cpu()          # a serial loop, not counted
+    serial = (time.perf_counter() - t0) * 1e3
+    check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+          f"PipelinedIdentifier: 4 x {per} clips' scores equal match_many's (submits "
+          f"{', '.join(f'{x:.1f}' for x in submit_ms)} ms, total {total:.1f} ms, serial "
+          f"loop {serial:.1f} ms)")
+    out["pipeline"] = {"submit_ms": submit_ms, "total_ms": total, "serial_ms": serial}
+
+    # (g) DeviceSplitPipeline: extract on slots {0, 1}, match on {2, 3}.
+    slots = list(lib_mesh.slots.flat)
+    split = DeviceSplitPipeline(*lib_planes, svc_lib.counts.cpu().numpy(), slots[:2],
+                                slots[2:], cfg)
+    res = [sharded(split.submit, *b) for b in batches][1:] + [sharded(split.drain)]
+    check(all(np.array_equal(g, w) for g, w in zip(res, got)),
+          "DeviceSplitPipeline (extract on slots 0-1, match on 2-3 of one card): scores "
+          "equal to the pipeline's")
+    del pipe, split, lib_planes
+
+    # (h) Sharded streaming, 256 streams x 10 s: aligned and conv steps.
+    stream_audio = np.stack([c.samples for c in clips])
+    for name, chunk in (("aligned", 1024), ("conv", 512)):
+        steps = stream_audio.shape[1] // chunk
+        chunks = [np.ascontiguousarray(stream_audio[:, s * chunk:(s + 1) * chunk])
+                  for s in range(steps)]
+        plain_ext = StreamingExtractor(N_CLIPS, chunk, cfg, dev, collect_host=False)
+        mesh_ext = StreamingExtractor(N_CLIPS, chunk, cfg, dev, collect_host=False,
+                                      mesh=data_mesh)
+        for c in chunks[:8]:                                    # warm-up
+            mesh_ext.feed(c)
+        mesh_ext.reset()
+        for c in chunks:
+            plain_ext.feed(c)
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")              # any host wait raises
+        try:
+            t0 = time.perf_counter()
+            for c in chunks:
+                mesh_ext.feed(c)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts.update(kernels.launch_counts())
+        rtf = N_CLIPS * steps * chunk / cfg.processing_sample_rate / wall
+        out[f"stream_{name}_rtf"] = rtf
+        check(plain_ext.fingerprints() == mesh_ext.fingerprints(),
+              f"StreamingExtractor(mesh=...) {name}: {N_CLIPS} streams over {N_SLOTS} data slots "
+              f"bit-equal to the unsharded extractor; RTF {rtf:.1f} (phase 8: "
+              f"{before[f'{name}_rtf']:.1f}; {smi})")
+        del plain_ext, mesh_ext
+
+    # (i) The streaming identifier and the service on the sharded 16,384 library.
+    s_svc_lib = ShardedFingerprintLibrary(svc_lib, lib_mesh)
+    id_chunks = [np.ascontiguousarray(stream_audio[:, s * 1024:(s + 1) * 1024])
+                 for s in range(stream_audio.shape[1] // 1024)]
+    for mode, group in (("full", 0), ("incremental", STREAM_GROUP)):
+        ident = StreamingIdentifier(s_svc_lib, N_CLIPS, 1024, cfg, match_every=4,
+                                    rematch=mode, match_stream_group=group, device=dev)
+        history = []
+        t0 = time.perf_counter()
+        for c in id_chunks:
+            sharded(ident.feed, c)
+            history.append([(m.track, m.score, m.n_subfingerprints) for m in ident.best()])
+        final = sharded(ident.finalize)
+        wall = time.perf_counter() - t0
+        history.append([(m.track, m.score, m.n_subfingerprints) for m in final])
+        out[f"identify_{mode}_stream_s_per_s"] = N_CLIPS * CLIP_SECONDS / wall
+        check(history == before["identify_runs"][mode],
+              f"StreamingIdentifier rematch={mode} on the sharded library: winners and scores "
+              f"equal to phase 10's after each of {len(id_chunks)} chunks "
+              f"({out[f'identify_{mode}_stream_s_per_s']:.1f} stream-s/s)")
+        del ident
+        torch.cuda.empty_cache()
+    batching = dict(batch_window_s=0.02, max_batch=8, device=dev)
+    s_svc = IdentificationService(s_svc_lib, names, cfg, **batching)
+    ref_svc = IdentificationService(svc_lib, names, cfg, **batching)
+    wav = payloads[:N_WAV]
+    with serving(s_svc) as addr:
+        concurrently(lambda p: http_call(addr, "POST", "/identify", p), [(p,) for p in wav])
+        kernels.reset_launch_counts()
+        answers = concurrently(lambda p: http_call(addr, "POST", "/identify", p),
+                               [(p,) for p in wav])
+        counts.update(kernels.launch_counts())
+    refs = [ref_svc.identify(p) for p in wav]
+    check(all(st == 200 and a["track"] == r["track"] == names[WAV_AT[j]]
+              and a["score"] == r["score"]
+              and all(e["score"] == float(svc_lib.match(wav_fp)[names.index(e["track"])])
+                      for e in a.get("top", []))
+              for j, ((st, a, _), r, wav_fp) in enumerate(zip(answers, refs,
+                                                              before["wav_fps"]))),
+          f"{N_WAV} concurrent /identify on the sharded library: winners and scores equal to "
+          f"the unsharded service's, every top-5 score exact")
+    return out, counts
 
 
 def nvidia_smi_line() -> str:
@@ -1697,14 +2051,25 @@ def main() -> int:
     svc_lib, names, payloads, wav_fps = service_library(dev, rng, fps, library)
     main_out["service"], counts = phase_service(dev, svc_lib, names, payloads, wav_fps, fps,
                                                 smi)
-    main_out["stream_identify"], more = phase_stream_identify(dev, svc_lib, clips, smi)
+    main_out["stream_identify"], more, runs = phase_stream_identify(dev, svc_lib, clips, smi)
     counts.update(more)
     for name in ("select_sign_classes", "fused_band_rows", "match_one_vs_many_fused"):
         check(counts[name] > 0, f"service + streaming identifier launched {name} "
                                 f"{counts[name]} times")
     for r in records:
         r["launches"] += counts[r["name"]]
-    main_out["maa_long"] = phase_maa_long(dev, rng, fps, smi)
+    main_out["maa_long"], long_args = phase_maa_long(dev, rng, fps, smi)
+
+    before = {**main_out["streaming"], "long_padded": main_out["maa_long"]["long_padded"],
+              "identify_runs": runs, "wav_fps": wav_fps}
+    big = build_big_library(dev, fps)[:2]           # phase 6's library, from its seed
+    main_out["sharded"], counts = phase_sharded(dev, big, (svc_lib, names, payloads), fps, clips,
+                                                long_args, before, smi)
+    for name in ("select_sign_classes", "fused_band_rows", "match_one_vs_many_fused"):
+        check(counts[name] > 0, f"the sharded layer launched {name} {counts[name]} times")
+    for r in records:
+        r["launches"] += counts[r["name"]]
+    del big
     check("jax" not in sys.modules, "no JAX module was imported")
 
     print(json.dumps({"main_path": main_out}))

@@ -3,8 +3,10 @@
 The extract -> match path, the packed library, the streaming runtime and
 identifier (``streaming``, with the incremental matcher), the HTTP
 identification service (``serving``), MAA (``models.maa``), the long
-matchers (``ops.match``), the profiling hooks (``utils.profiling``) and the
-C-API name layer (``compat``) run on a torch device; on CUDA the extraction
+matchers (``ops.match``), the profiling hooks (``utils.profiling``), the
+C-API name layer (``compat``) and the multi-device layer (``parallel``: a
+mesh of device slots, sharded matching, search, ring dedup and the sharded
+library) run on a torch device; on CUDA the extraction
 and the library's matcher go through hand-written Hopper kernels
 (``ops.kernels``).  Decoding, resampling, the configuration,
 the Fingerprint value type, the library file format and the NumPy oracle are
@@ -21,6 +23,7 @@ package.
     StreamingDetective  -- single-stream Start/Stop/Pause/Resume API
     StreamingIdentifier -- B streams identified against a library
     IdentificationService -- the HTTP edge's request -> response core
+    ShardedFingerprintLibrary -- a FingerprintLibrary split over a mesh
     extract_fingerprint -- single-clip extraction
     match_fingerprints  -- offset-sliding matcher
 
@@ -42,6 +45,7 @@ _EXPORTS = {
     "StreamingDetective": "lbaudiodetective_torch.streaming.runtime",
     "StreamingIdentifier": "lbaudiodetective_torch.streaming.identify",
     "IdentificationService": "lbaudiodetective_torch.serving",
+    "ShardedFingerprintLibrary": "lbaudiodetective_torch.parallel.sharded_library",
 }
 
 __all__ = list(_EXPORTS)

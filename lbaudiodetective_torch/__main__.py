@@ -10,9 +10,11 @@ it raises when CUDA is absent, it never falls back to the CPU):
   serve --library lib.npz                 run the HTTP identification edge
   client <clip> --url http://host:8414    POST a clip to a running server
   listen <clip> --url http://host:8414    stream a clip's fingerprint to one
+  dedup --library lib.npz [--devices N]   all-pairs near-duplicate scan
 
-The reference's ``dedup`` and ``serve --shard-library`` need its parallel
-modules and are not ported here.
+``dedup --devices N`` runs the ring over N slots (N cards on CUDA, as the
+reference needs N devices; N slots with ``--device cpu``), and
+``serve --shard-library N`` serves the library split N ways over the mesh.
 
 Audio: CAF (IMA4/LPCM), WAV, and AIFF/AIFF-C.  Library files are the JAX
 package's npz format (parameter-hash guarded); either package reads the
@@ -129,10 +131,70 @@ def cmd_identify(args) -> int:
     return 0
 
 
+def _mesh(n_slots: int, library_parallelism: int, device: str):
+    """The ``(data, library)`` mesh of a sharded command: every visible card
+    on CUDA (``n_slots`` of them where given), ``n_slots`` slots on the
+    CPU."""
+    from lbaudiodetective_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_devices=n_slots or None, library_parallelism=library_parallelism,
+                     device=device)
+
+
+def cmd_dedup(args) -> int:
+    """All-pairs near-duplicate scan of an enrolled library: the packed ring
+    dedup (``parallel.sharded_packed.ring_dedup_topk_packed``, BASELINE
+    config 5's candidate exchange) over a ``--devices``-way ring (1 =
+    plain all-pairs), printing each track's top-k candidates, optionally
+    filtered by ``--threshold``."""
+    from lbaudiodetective_torch.parallel.mesh import unshard
+    from lbaudiodetective_torch.parallel.sharded_packed import ring_dedup_topk_packed
+
+    if args.top_k < 1:
+        print("--top-k must be >= 1", file=sys.stderr)
+        return 2
+    if args.devices < 1:
+        print("--devices must be >= 1", file=sys.stderr)
+        return 2
+    lib, names = _load_library(args.library, args.device)
+    l_real = len(lib)
+    if l_real < 2:
+        print("library has fewer than 2 tracks — nothing to dedup", file=sys.stderr)
+        return 2
+    mesh = _mesh(args.devices, args.devices, args.device)
+    pad = (-l_real) % mesh.shape["library"]
+    # Padded entries score 0.0 in the top-k: ask for `pad` extra slots so
+    # they never displace a real candidate, then drop them.
+    k = min(args.top_k, l_real - 1)
+    scores, idx = ring_dedup_topk_packed(
+        lib.pos_words, lib.neg_words, lib.counts, lib.pairs, mesh,
+        k=min(k + pad, l_real + pad - 1),
+        subfingerprint_length=lib.config.subfingerprint_length)
+    scores = unshard(scores).cpu().numpy()[:l_real]
+    idx = unshard(idx).cpu().numpy()[:l_real]
+    out = []
+    for t in range(l_real):
+        cands = [{"track": names[int(j)], "score": round(float(s), 4)}
+                 for s, j in zip(scores[t], idx[t])
+                 if 0 <= int(j) < l_real and float(s) >= args.threshold][:k]
+        if cands:
+            out.append({"track": names[t], "candidates": cands})
+    print(json.dumps(out, indent=None if args.compact else 2))
+    return 0
+
+
 def cmd_serve(args) -> int:
     from lbaudiodetective_torch.serving import IdentificationService, serve_forever
 
     lib, names = _load_library(args.library, args.device)
+    shard_note = ""
+    if args.shard_library:
+        from lbaudiodetective_torch.parallel.sharded_library import ShardedFingerprintLibrary
+
+        on_cpu = args.device.startswith("cpu")
+        mesh = _mesh(args.shard_library if on_cpu else 0, args.shard_library, args.device)
+        lib = ShardedFingerprintLibrary(lib, mesh)
+        shard_note = f", {mesh.shape['library']}-way library-sharded"
     service = IdentificationService(
         lib, names, batch_window_s=args.batch_window, max_batch=args.max_batch,
         n_sub_cap=args.n_sub_cap, search_threshold=args.search_threshold,
@@ -143,8 +205,8 @@ def cmd_serve(args) -> int:
         if n:
             print(f"restored {n} live session(s) from {args.sessions_dir}",
                   file=sys.stderr)
-    print(f"serving {len(names)} tracks on {args.host}:{args.port} ({service.device})",
-          file=sys.stderr)
+    print(f"serving {len(names)} tracks on {args.host}:{args.port} ({service.device}"
+          f"{shard_note})", file=sys.stderr)
     try:
         serve_forever(service, host=args.host, port=args.port)
     finally:
@@ -252,10 +314,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "coarse->exact search (large libraries)")
     i.set_defaults(fn=cmd_identify)
 
+    d = sub.add_parser("dedup", parents=[dev],
+                       help="all-pairs near-duplicate scan of a library (packed ring dedup)")
+    d.add_argument("--library", required=True)
+    d.add_argument("--top-k", type=int, default=3, metavar="K",
+                   help="candidates reported per track (default 3)")
+    d.add_argument("--threshold", type=float, default=0.0,
+                   help="only report candidate pairs scoring >= this")
+    d.add_argument("--devices", type=int, default=1, metavar="N",
+                   help="ring size: shard the library over N cards (N slots on the CPU)")
+    d.add_argument("--compact", action="store_true", help="single-line JSON output")
+    d.set_defaults(fn=cmd_dedup)
+
     s = sub.add_parser("serve", parents=[dev], help="run the HTTP identification server")
     s.add_argument("--library", required=True)
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8414)
+    s.add_argument("--shard-library", type=int, default=0, metavar="N",
+                   help="shard the library N-way over the mesh of every visible card "
+                        "(N slots with --device cpu; 0 = one device)")
     s.add_argument("--batch-window", type=float, default=0.0, metavar="S",
                    help="micro-batch concurrent identifies arriving within "
                         "S seconds into one device dispatch (0 = off)")

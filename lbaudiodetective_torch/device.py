@@ -10,6 +10,7 @@ passes ``device="cpu"``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: The default ``device`` of every entry point.
@@ -28,9 +29,26 @@ def resolve_device(device: torch.device | str, what: str) -> torch.device:
 def library_device(library, device: torch.device | str, what: str) -> torch.device:
     """The device of ``library`` once ``device`` (resolved as
     :func:`resolve_device` does) is checked to be it: ``ValueError`` when
-    the caller's device and the library's differ."""
+    the caller's device and the library's differ.  A library sharded over a
+    mesh (``library.mesh``) needs every slot on the caller's device type
+    (and card, where ``device`` names one); its device is its first
+    slot's."""
     device = resolve_device(device, what)
-    lib_dev = library.device
-    if device.type != lib_dev.type or device.index not in (None, lib_dev.index):
-        raise ValueError(f"{what}: the library is on {lib_dev}, not on {device}")
-    return lib_dev
+    mesh = getattr(library, "mesh", None)
+    slot_devs = [library.device] if mesh is None else [s.device for s in mesh.slots.flat]
+    for lib_dev in slot_devs:
+        if device.type != lib_dev.type or device.index not in (None, lib_dev.index):
+            raise ValueError(f"{what}: the library is on {lib_dev}, not on {device}")
+    return library.device
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A NumPy array or tensor on ``device``.  A host array goes through
+    pinned memory with a non-blocking copy, so the host does not wait for
+    the device's queue."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

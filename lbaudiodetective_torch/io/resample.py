@@ -98,3 +98,28 @@ def resample_rational(x: np.ndarray, fs_in: float, fs_out: float,
     windows = xp[idx]
     return np.einsum("nt,nt->n", windows, bank[phase]).astype(np.float32)
 
+
+
+def resample_rational_torch(x, fs_in: float, fs_out: float, n_in: int | None = None):
+    """Device-side resampler: the host path's polyphase bank and plan, as a
+    gather of ``[n_out, taps]`` windows and a per-row dot on ``x``'s device
+    (the same samples up to the order of the dot's sum).
+
+    ``x``: ``[..., T]`` float32 tensor; ``n_in`` fixes the plan's input
+    length (default T).  Returns ``[..., n_out]``."""
+    import torch
+    import torch.nn.functional as F
+
+    if fs_in == fs_out:
+        return x
+    up, down = _reduce_ratio(fs_in, fs_out)
+    bank = design_polyphase_bank(up, down)
+    taps = bank.shape[1]
+    n_in = int(x.shape[-1]) if n_in is None else n_in
+    n_out, base, phase = polyphase_plan(n_in, up, down, bank)
+    xp = F.pad(x, (taps, taps))
+    idx = torch.from_numpy((base + taps)[:, None]
+                           + np.arange(taps, dtype=np.int64)[None, :]).to(x.device)
+    windows = xp[..., idx]                                   # [..., n_out, taps]
+    weights = torch.from_numpy(bank[phase]).to(x.device)     # [n_out, taps]
+    return (windows * weights).sum(-1)

@@ -27,17 +27,18 @@ from lbaudiodetective_torch.ops.kernels.match_packed import (
     match_one_vs_many_fused, prefix_mask_words)
 from lbaudiodetective_torch.ops.match import _pair_mask
 
-_BIT_WEIGHTS = torch.tensor([1 << i for i in range(32)], dtype=torch.int64)
-
-
 def pack_bits_device(plane: torch.Tensor) -> torch.Tensor:
     """``[..., pairs] {0,1} -> [..., ceil(pairs/32)]`` int32 words on the
     plane's device (little-endian bit order, the layout of
-    ``utils.packing.pack_bits``; bit 31 is the sign bit of the int32)."""
+    ``utils.packing.pack_bits``; bit 31 is the sign bit of the int32).  The
+    bit weights are made on the device: copying them from the host would
+    make the host wait for the device's queue."""
     *lead, pairs = plane.shape
     w = words_per_plane(pairs)
     bits = F.pad(plane.to(torch.int64), (0, w * 32 - pairs)).reshape(*lead, w, 32)
-    words = (bits * _BIT_WEIGHTS.to(plane.device)).sum(-1)
+    weights = torch.ones(32, dtype=torch.int64, device=plane.device) << torch.arange(
+        32, device=plane.device)
+    words = (bits * weights).sum(-1)
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 

@@ -32,8 +32,10 @@ Handler threads run device work one at a time, under ``_lock`` and inside
 ``torch.cuda.device`` of the service's device.  Locks are taken in one
 order: ``_slock``, a session's lock, ``_pcond``, ``_lock``.  Unlike the JAX
 package, the service does not warn about ``matmul_precision``: the port's
-kernels compute at one precision whatever its value.  The reference's
-mesh-sharded library is not ported here.
+kernels compute at one precision whatever its value.  A
+:class:`~lbaudiodetective_torch.parallel.sharded_library.
+ShardedFingerprintLibrary` is served unchanged: the service runs on its
+first slot's device, and each slot scans its shard.
 """
 
 from __future__ import annotations

@@ -21,7 +21,11 @@ Two rematch modes, as in the reference:
   diagonal sums (``streaming/incremental.py``), with the same scores.
 
 The winner is the highest score, ties to the lowest library index, in both.
-The reference's mesh-sharded library is not ported here.
+A :class:`~lbaudiodetective_torch.parallel.sharded_library.
+ShardedFingerprintLibrary` is matched through its own ``match_many`` in
+full mode (one matcher call a library slot, each query clamped to the
+entries' rows, as the reference does) and split over its slots in
+incremental mode.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 
 from lbaudiodetective_torch.config import FingerprintConfig
 from lbaudiodetective_torch.device import DEFAULT_DEVICE, library_device
+from lbaudiodetective_torch.models.fingerprint import Fingerprint
 from lbaudiodetective_torch.models.library import FingerprintLibrary
 from lbaudiodetective_torch.ops.extract import bucket_subfingerprints
 from lbaudiodetective_torch.ops.match_packed import match_one_vs_many_packed, pack_bits_device
@@ -150,7 +155,13 @@ class StreamingIdentifier:
             sc, ix = self._inc.top_k(1)
             self._set_results(sc[:, 0], ix[:, 0], n_sub)
             return
-        scores = self._full_scores(pos, neg, n_sub)
+        if hasattr(self.library, "mesh"):
+            pos, neg = pos.cpu().numpy(), neg.cpu().numpy()
+            length = self.config.subfingerprint_length
+            scores = torch.from_numpy(self.library.match_many(
+                [Fingerprint.from_planes(pos[b], neg[b], length) for b in range(self.batch)]))
+        else:
+            scores = self._full_scores(pos, neg, n_sub)
         best = scores.argmax(1)                      # the first maximum: ties to the lowest index
         self._set_results(torch.gather(scores, 1, best[:, None])[:, 0].cpu(),
                           best.cpu(), n_sub)

@@ -29,8 +29,9 @@ extracted fingerprint does, and at most ``2 * pairs`` when one does
 (``FingerprintLibrary.from_arrays`` and ``load`` accept such planes, and a
 posted query may hold them too).  Otherwise the planes are float32.
 The state is ``batch * L * (S + n_cap) * 4`` bytes (256 streams x 16,384
-entries x (56 + 256) diagonals: 5.4 GB).
-The reference's mesh-sharded library is not ported here.
+entries x (56 + 256) diagonals: 5.4 GB).  On a
+``ShardedFingerprintLibrary`` the planes and the state split over the
+library slots, each slot folding its own entries.
 """
 
 from __future__ import annotations
@@ -125,6 +126,31 @@ def _planes(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.uint8, device=device)
 
 
+class _Shard:
+    """The library part one slot matches: unpacked planes ``[l * S, 2 *
+    pairs]`` (hits = planes @ [qp | qn].T, exact), reciprocal possible
+    hits ``[l, S]``, counts ``[l]`` and valid rows ``[l, S]``, on its
+    device."""
+
+    def __init__(self, pos_words, neg_words, counts, pairs: int, mask: torch.Tensor):
+        self.device = pos_words.device
+        self.l, s, _ = pos_words.shape
+        m = mask.to(self.device, torch.uint8)
+        self.lp = _unpack_words(pos_words, pairs) * m
+        self.ln = _unpack_words(neg_words, pairs) * m
+        self.mask = m
+        self.n_lib = counts
+        self.inv_lib = _inv_possible((self.lp + self.ln).sum(-1, dtype=torch.int32)
+                                     .to(torch.float32))
+        self.row_valid = (torch.arange(s, device=self.device)[None, :]
+                          < counts[:, None]).to(torch.float32)
+
+    def set_dtype(self, dtype: torch.dtype) -> None:
+        l, s, pairs = self.lp.shape
+        self.planes = torch.cat([self.lp, self.ln], dim=-1).reshape(l * s, 2 * pairs).to(dtype)
+        del self.lp, self.ln
+
+
 class IncrementalLibraryMatcher:
     """Running Q10 scores of ``batch`` growing queries vs a library.
 
@@ -140,6 +166,12 @@ class IncrementalLibraryMatcher:
     ``stream_group`` > 0 processes streams in groups of that size (bounding
     the ``[G, k, L, S]`` hit transient); the state is held per group.  The
     matcher runs on the library's device, which must be ``device``.
+
+    A :class:`~lbaudiodetective_torch.parallel.sharded_library.
+    ShardedFingerprintLibrary` is accepted too: each library slot then
+    holds its shard's planes and its part of the diagonal state (no
+    collective a tick), the entry axis carries the library's zero-count
+    padding, and results are trimmed to the true entries.
     """
 
     def __init__(self, library, batch: int, n_cap: int = 256,
@@ -158,31 +190,31 @@ class IncrementalLibraryMatcher:
             raise ValueError("stream_group must divide batch")
         self.group = g
         self.pairs = pairs = library.pairs
-        l, s, _ = library.pos_words.shape
+        sharded = getattr(library, "mesh", None) is not None
+        parts = (zip(library.pos_shards, library.neg_shards, library.count_shards) if sharded
+                 else [(library.pos_words, library.neg_words, library.counts)])
         mask = torch.from_numpy(_pair_mask(pairs, comparison_range,
-                                           self.config.subfingerprint_length)).to(self.device)
-        self._mask = mask
-        lp = _unpack_words(library.pos_words, pairs) * mask.to(torch.uint8)
-        ln = _unpack_words(library.neg_words, pairs) * mask.to(torch.uint8)
+                                           self.config.subfingerprint_length))
+        self._shards = [_Shard(p, n, c, pairs, mask) for p, n, c in parts]
+        self._true_l = len(library)
         # A hit count is lp . qp + ln . qn over the pairs: at most ``pairs``
         # while no entry sets both bits of a pair, whatever the query holds.
-        max_hits = 2 * pairs if bool((lp & ln).any()) else pairs
-        self._dtype = torch.bfloat16 if max_hits <= BF16_EXACT_HITS else torch.float32
-        #: ``[L * S, 2 * pairs]``: hits = planes @ [qp | qn].T, exact.
-        self._lib_planes = torch.cat([lp, ln], dim=-1).reshape(l * s, 2 * pairs).to(self._dtype)
-        w_lib = (lp + ln).sum(-1, dtype=torch.int32).to(torch.float32)
-        self._inv_lib = _inv_possible(w_lib)                            # [L, S]
-        self._n_lib = library.counts
-        self._lib_row_valid = (torch.arange(s, device=self.device)[None, :]
-                               < library.counts[:, None]).to(torch.float32)
-        self._geom = (g, l, s)
+        overlap = any(bool((sh.lp & sh.ln).any()) for sh in self._shards)
+        self._dtype = (torch.bfloat16 if (2 * pairs if overlap else pairs) <= BF16_EXACT_HITS
+                       else torch.float32)
+        for sh in self._shards:
+            sh.set_dtype(self._dtype)
+        s = int(library.pos_words.shape[1])
+        self._geom = (g, sum(sh.l for sh in self._shards), s)
         self._state = [self._zero_state() for _ in range(batch // g)]
         self.n = 0
 
-    def _zero_state(self) -> tuple[torch.Tensor, torch.Tensor]:
-        g, l, s = self._geom
-        return (torch.zeros((g, l, s), dtype=torch.float32, device=self.device),
-                torch.zeros((g, l, self.n_cap), dtype=torch.float32, device=self.device))
+    def _zero_state(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """One group's ``(d_a, d_b)`` a shard."""
+        g, _, s = self._geom
+        return [(torch.zeros((g, sh.l, s), dtype=torch.float32, device=sh.device),
+                 torch.zeros((g, sh.l, self.n_cap), dtype=torch.float32, device=sh.device))
+                for sh in self._shards]
 
     def clone_empty(self) -> "IncrementalLibraryMatcher":
         """A fresh-state matcher sharing this one's device-resident library
@@ -204,20 +236,21 @@ class IncrementalLibraryMatcher:
         if not self.grow:
             raise ValueError(f"{what} {needed} exceeds n_cap={self.n_cap}")
         new_cap = max(self.n_cap * 2, needed)
-        self._state = [(d_a, F.pad(d_b, (0, new_cap - self.n_cap)))
-                       for d_a, d_b in self._state]
+        self._state = [[(d_a, F.pad(d_b, (0, new_cap - self.n_cap))) for d_a, d_b in group]
+                       for group in self._state]
         self.n_cap = new_cap
 
-    def _hits(self, qp: torch.Tensor, qn: torch.Tensor
+    def _hits(self, sh: _Shard, qp: torch.Tensor, qn: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``[G, k, pairs]`` query planes -> hit counts ``[G, k, L, S]`` in
-        the planes' type (exact integers; each fold multiplies them in
-        float32) and the queries' reciprocal possible hits ``[G, k]``."""
+        """``[G, k, pairs]`` query planes -> hit counts ``[G, k, l, S]``
+        against shard ``sh`` in the planes' type (exact integers; each fold
+        multiplies them in float32) and the queries' reciprocal possible
+        hits ``[G, k]``."""
         g, k, pairs = qp.shape
-        _, l, s = self._geom
+        qp, qn = qp.to(sh.device), qn.to(sh.device)
         q = torch.cat([qp, qn], dim=-1).reshape(g * k, 2 * pairs).to(self._dtype)
-        hits = torch.matmul(q, self._lib_planes.T).reshape(g, k, l, s)
-        w_q = ((qp + qn) * self._mask.to(torch.uint8)).sum(-1, dtype=torch.int32)
+        hits = torch.matmul(q, sh.planes.T).reshape(g, k, sh.l, -1)
+        w_q = ((qp + qn) * sh.mask).sum(-1, dtype=torch.int32)
         return hits, _inv_possible(w_q.to(torch.float32))
 
     def update(self, new_pos, new_neg, k_valid: int | None = None) -> None:
@@ -231,12 +264,13 @@ class IncrementalLibraryMatcher:
             g = self.group
             qp_all = _planes(new_pos, self.device)[:, :k_valid]
             qn_all = _planes(new_neg, self.device)[:, :k_valid]
-            for gi, (d_a, d_b) in enumerate(self._state):
-                hits, inv_q = self._hits(qp_all[gi * g:(gi + 1) * g],
-                                         qn_all[gi * g:(gi + 1) * g])
-                for t in range(k_valid):
-                    _fold_one(d_a, d_b, hits[:, t], self._inv_lib, self._lib_row_valid,
-                              inv_q[:, t], slice(None), self.n + t)
+            for gi, group in enumerate(self._state):
+                for sh, (d_a, d_b) in zip(self._shards, group):
+                    hits, inv_q = self._hits(sh, qp_all[gi * g:(gi + 1) * g],
+                                             qn_all[gi * g:(gi + 1) * g])
+                    for t in range(k_valid):
+                        _fold_one(d_a, d_b, hits[:, t], sh.inv_lib, sh.row_valid,
+                                  inv_q[:, t], slice(None), self.n + t)
         self.n += k_valid
 
     def update_bucketed(self, new_pos, new_neg) -> None:
@@ -244,6 +278,13 @@ class IncrementalLibraryMatcher:
         bounds its jit shapes.  Nothing compiles per shape here, so this is
         :meth:`update` of all ``k`` columns."""
         self.update(new_pos, new_neg)
+
+    def _scores(self, group: list, n: torch.Tensor) -> torch.Tensor:
+        """``[G, L]`` scores of one group at ages ``n``, the shards' joined
+        on the matcher's device and trimmed to the true entries."""
+        parts = [_scores_group(d_a, d_b, sh.n_lib, n.to(sh.device)).to(self.device)
+                 for sh, (d_a, d_b) in zip(self._shards, group)]
+        return torch.cat(parts, dim=1)[:, :self._true_l]
 
     # -- slot (asynchronous-session) interface -------------------------------
     #
@@ -266,43 +307,59 @@ class IncrementalLibraryMatcher:
         k_max = int(k_valid.max()) if k_valid.size else 0
         if k_max == 0:
             return
-        d_a, d_b = self._state[0]
-        hits, inv_q = self._hits(_planes(new_pos, self.device)[:, :k_max],
-                                 _planes(new_neg, self.device)[:, :k_max])
-        for t in range(k_max):
-            live = np.flatnonzero(k_valid > t)
-            for i in np.unique(base[live] + t):
-                sel = live[base[live] + t == i]
-                if sel.size == self.batch:
-                    slots = slice(None)
-                else:
-                    slots = torch.from_numpy(sel).to(self.device)
-                _fold_one(d_a, d_b, hits[slots, t], self._inv_lib, self._lib_row_valid,
-                          inv_q[slots, t], slots, int(i))
+        qp = _planes(new_pos, self.device)[:, :k_max]
+        qn = _planes(new_neg, self.device)[:, :k_max]
+        for sh, (d_a, d_b) in zip(self._shards, self._state[0]):
+            hits, inv_q = self._hits(sh, qp, qn)
+            for t in range(k_max):
+                live = np.flatnonzero(k_valid > t)
+                for i in np.unique(base[live] + t):
+                    sel = live[base[live] + t == i]
+                    if sel.size == self.batch:
+                        slots = slice(None)
+                    else:
+                        slots = torch.from_numpy(sel).to(sh.device)
+                    _fold_one(d_a, d_b, hits[slots, t], sh.inv_lib, sh.row_valid,
+                              inv_q[slots, t], slots, int(i))
 
     def scores_slots(self, ages) -> np.ndarray:
         """``[batch, L]`` scores at per-slot ages ``ages`` (``[batch]``)."""
-        d_a, d_b = self._state[0]
         ages = torch.as_tensor(np.asarray(ages, np.int64), device=self.device)
-        return _scores_group(d_a, d_b, self._n_lib, ages).cpu().numpy()
+        return self._scores(self._state[0], ages).cpu().numpy()
 
     def top_k_slots(self, k: int, ages) -> tuple[np.ndarray, np.ndarray]:
         """Device-side top-k at per-slot ages (see :meth:`top_k`)."""
-        d_a, d_b = self._state[0]
         ages = torch.as_tensor(np.asarray(ages, np.int64), device=self.device)
-        return _top_k(_scores_group(d_a, d_b, self._n_lib, ages), min(k, self._geom[1]))
+        return _top_k(self._scores(self._state[0], ages), min(k, self._true_l))
 
     def reset_slot(self, slot: int) -> None:
         """Zero one slot's accumulators (slot freed for a new session)."""
-        d_a, d_b = self._state[0]
-        d_a[slot] = 0.0
-        d_b[slot] = 0.0
+        for d_a, d_b in self._state[0]:
+            d_a[slot] = 0.0
+            d_b[slot] = 0.0
+
+    def slot_state(self, slot: int) -> tuple[np.ndarray, np.ndarray]:
+        """One slot's accumulators ``([1, L, S], [1, L, n_cap])`` on the
+        host, the shards joined along the entry axis."""
+        return tuple(torch.cat([x[slot:slot + 1].cpu() for x in planes], dim=1).numpy()
+                     for planes in zip(*self._state[0]))
+
+    def set_slot_state(self, slot: int, d_a: np.ndarray, d_b: np.ndarray) -> None:
+        """Write ``[L, S]`` and ``[L, <= n_cap]`` host accumulators into one
+        slot (a shorter orientation-B state is zero-padded)."""
+        lo = 0
+        for sh, (sa, sb) in zip(self._shards, self._state[0]):
+            sa[slot] = torch.from_numpy(d_a[lo:lo + sh.l]).to(sh.device)
+            sb[slot] = 0.0
+            sb[slot, :, :d_b.shape[-1]] = torch.from_numpy(d_b[lo:lo + sh.l]).to(sh.device)
+            lo += sh.l
 
     # -- session persistence --------------------------------------------------
     #
     # The diagonal state fully determines the running scores and is small
     # next to the library planes, so it round-trips through one npz per
-    # matcher, in the JAX package's format.
+    # matcher, in the JAX package's format (the shards' state joined along
+    # the padded entry axis).
 
     def _state_key(self) -> str:
         """Geometry + library identity a restored state must match
@@ -319,9 +376,9 @@ class IncrementalLibraryMatcher:
         """Checkpoint the diagonal state (all stream groups) and the stream
         age; the library itself is not saved."""
         arrays = {}
-        for gi, (d_a, d_b) in enumerate(self._state):
-            arrays[f"da_{gi}"] = d_a.cpu().numpy()
-            arrays[f"db_{gi}"] = d_b.cpu().numpy()
+        for gi, group in enumerate(self._state):
+            arrays[f"da_{gi}"] = torch.cat([d_a.cpu() for d_a, _ in group], dim=1).numpy()
+            arrays[f"db_{gi}"] = torch.cat([d_b.cpu() for _, d_b in group], dim=1).numpy()
         np.savez(path, n=np.int64(self.n), n_groups=np.int64(len(self._state)),
                  state_key=np.bytes_(self._state_key().encode()), **arrays)
 
@@ -336,26 +393,26 @@ class IncrementalLibraryMatcher:
             n_groups = int(z["n_groups"])
             if n_groups != len(self._state):
                 raise ValueError("stream group count mismatch")
-            self._state = [(torch.from_numpy(z[f"da_{gi}"]).to(self.device),
-                            torch.from_numpy(z[f"db_{gi}"]).to(self.device))
+            bounds = np.cumsum([0] + [sh.l for sh in self._shards])
+            self._state = [[(torch.from_numpy(z[f"da_{gi}"][:, lo:hi]).to(sh.device),
+                             torch.from_numpy(z[f"db_{gi}"][:, lo:hi]).to(sh.device))
+                            for sh, lo, hi in zip(self._shards, bounds[:-1], bounds[1:])]
                            for gi in range(n_groups)]
-            self.n_cap = int(self._state[0][1].shape[-1])
+            self.n_cap = int(self._state[0][0][1].shape[-1])
             self.n = int(z["n"])
 
     def scores(self) -> np.ndarray:
         """``[batch, L]`` running match scores."""
         n = torch.tensor([self.n], device=self.device)
-        return torch.cat([_scores_group(d_a, d_b, self._n_lib, n)
-                          for d_a, d_b in self._state]).cpu().numpy()
+        return torch.cat([self._scores(group, n) for group in self._state]).cpu().numpy()
 
     def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:
         """Device-side top-k: ``([batch, k] scores, [batch, k] indices)``,
         descending, ties to the lowest index; fetches ``k`` values a stream
         instead of the ``[batch, L]`` plane."""
         n = torch.tensor([self.n], device=self.device)
-        scores = torch.cat([_scores_group(d_a, d_b, self._n_lib, n)
-                            for d_a, d_b in self._state])
-        return _top_k(scores, min(k, self._geom[1]))
+        scores = torch.cat([self._scores(group, n) for group in self._state])
+        return _top_k(scores, min(k, self._true_l))
 
 
 class StreamSessionPool:
@@ -476,11 +533,9 @@ class StreamSessionPool:
         if self._pending.get(sid):
             raise ValueError("flush before saving (pending posts)")
         slot = self._slot[sid]
-        d_a, d_b = self._m._state[0]
+        d_a, d_b = self._m.slot_state(slot)
         np.savez(path, n=np.int64(self._age[slot]), n_groups=np.int64(1),
-                 state_key=np.bytes_(self._session_key().encode()),
-                 da_0=d_a[slot:slot + 1].cpu().numpy(),
-                 db_0=d_b[slot:slot + 1].cpu().numpy())
+                 state_key=np.bytes_(self._session_key().encode()), da_0=d_a, db_0=d_b)
 
     def restore_session(self, sid: str, path: str) -> None:
         """Restore a single-session checkpoint into an open session's slot
@@ -493,10 +548,6 @@ class StreamSessionPool:
                                  "or stream geometry")
             new_a, new_b = z["da_0"][0], z["db_0"][0]
             n = int(z["n"])
-        m = self._m
-        m._grow(new_b.shape[-1], "checkpoint capacity")
-        d_a, d_b = m._state[0]
-        d_a[slot] = torch.from_numpy(new_a).to(m.device)
-        d_b[slot] = 0.0
-        d_b[slot, :, :new_b.shape[-1]] = torch.from_numpy(new_b).to(m.device)
+        self._m._grow(new_b.shape[-1], "checkpoint capacity")
+        self._m.set_slot_state(slot, new_a, new_b)
         self._age[slot] = n

@@ -21,7 +21,9 @@ Rows go into a rows ring; completed frames go through
 Incremental output is bit-identical to the offline extractor over the
 concatenated stream where both run the same rows code.  int16 chunks convert
 on the device; with ``collect_host=False`` no step waits for the device.
-The reference's ``mesh`` option (streams sharded over devices) is not ported.
+With a ``mesh``, the stream axis splits over the slots of ``mesh_axis``
+and each slot steps its own streams with the same kernels (every step is
+elementwise across streams, so no collective is needed).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from lbaudiodetective_torch.config import FingerprintConfig
-from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device, to_device
 from lbaudiodetective_torch.models.fingerprint import Fingerprint
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
@@ -47,18 +49,6 @@ def _rows_ring_size(rows_per_frame: int, r_max: int) -> int:
     (a completing frame reaches ``rows_per_frame - 1`` rows behind the
     newest, and up to ``r_max`` rows arrive before frames are harvested)."""
     return 1 << int(np.ceil(np.log2(rows_per_frame + r_max)))
-
-
-def _on_device(x, device: torch.device) -> torch.Tensor:
-    """A NumPy array or tensor on ``device``.  A host array goes through
-    pinned memory with a non-blocking copy, so the host does not wait for
-    the device's queue."""
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
-    if t.device == device:
-        return t
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def _to_f32(chunk: torch.Tensor) -> torch.Tensor:
@@ -92,10 +82,19 @@ class StreamingExtractor:
     config: FingerprintConfig = dataclasses.field(default_factory=FingerprintConfig)
     device: torch.device | str = DEFAULT_DEVICE
     collect_host: bool = True
+    #: Optional ``parallel.mesh.Mesh``: the stream axis splits over the
+    #: slots of ``mesh_axis`` (every slot in this process, on ``device``'s
+    #: type), each slot stepping ``batch / n`` streams of its own.
+    mesh: object = None
+    mesh_axis: str = "data"
 
     def __post_init__(self):
         cfg = self.config
         self.device = resolve_device(self.device, "StreamingExtractor")
+        self._parts = None
+        if self.mesh is not None:
+            self._split_over_mesh()
+            return
         self.hop = cfg.hop_in_processing_samples
         self.r_max = int(np.ceil(self.chunk_size / self.hop)) + 1
         self.f_max = max(1, (self.r_max + cfg.rows_per_frame - 1) // cfg.rows_per_frame + 1)
@@ -121,9 +120,34 @@ class StreamingExtractor:
         self.consts = constants_to_tensors(arrays, self.device)
         self.reset()
 
+    def _split_over_mesh(self) -> None:
+        """One extractor a slot of ``mesh_axis``, each over ``batch / n``
+        streams on the slot's device."""
+        slots = self.mesh.require_local(self.mesh_axis, "a sharded StreamingExtractor")
+        if self.batch % len(slots):
+            raise ValueError("batch must divide the mesh data axis")
+        for slot in slots:
+            if slot.device.type != self.device.type:
+                raise ValueError(f"StreamingExtractor: a mesh slot is on {slot.device}, "
+                                 f"not on {self.device}")
+        self._parts = [StreamingExtractor(self.batch // len(slots), self.chunk_size,
+                                          self.config, slot.device, self.collect_host)
+                       for slot in slots]
+        for name in ("hop", "r_max", "f_max", "ring_size", "l_buf", "aligned", "use_conv",
+                     "span"):
+            setattr(self, name, getattr(self._parts[0], name))
+        self.reset()
+
     def reset(self, keep_collected: bool = False) -> None:
         """Clear stream state (the essay's LBAudioDetectiveReset)."""
         cfg, dev = self.config, self.device
+        if self._parts is not None:
+            for part in self._parts:
+                part.reset()
+            self.total_samples = self.rows_done = 0
+            if not keep_collected:
+                self.collected = []
+            return
         # The conv path keeps a linear sliding buffer, the gather path a
         # mod-l_buf ring: the same array, indexed differently.
         self.audio_ring = torch.zeros((self.batch, self.l_buf), dtype=torch.float32,
@@ -162,7 +186,9 @@ class StreamingExtractor:
         cfg = self.config
         if tuple(chunk.shape) != (self.batch, self.chunk_size):
             raise ValueError(f"chunk must be [{self.batch}, {self.chunk_size}]")
-        x = _to_f32(_on_device(chunk, self.device))
+        if self._parts is not None:
+            return self._feed_parts(chunk)
+        x = _to_f32(to_device(chunk, self.device))
         new_total = self.total_samples + self.chunk_size
         if self.aligned:
             return self._feed_aligned(x, new_total)
@@ -196,7 +222,7 @@ class StreamingExtractor:
             if n_new:
                 starts = np.array([self._row_start(r) % self.l_buf
                                    for r in range(r0, r_end)], np.int64)
-                idx = (_on_device(starts, self.device)[:, None]
+                idx = (to_device(starts, self.device)[:, None]
                        + torch.arange(cfg.window_size, device=self.device)) % self.l_buf
                 rows = spectral.band_energies(self.audio_ring[:, idx], cfg)
                 _put_ring(self.rows_ring, r0 % self.ring_size, rows)
@@ -233,6 +259,30 @@ class StreamingExtractor:
             extractor=get_extractor(cfg, str(self.device)))
         self.rows_done = (frame + 1) * cfg.rows_per_frame
         return self._emit(pos, neg, 1)
+
+    def _feed_parts(self, chunk):
+        """Feed each slot its streams' rows of ``chunk`` and join what they
+        completed (lockstep: every slot completes the same frames), on the
+        host or on the first slot's device."""
+        b = self.batch // len(self._parts)
+        outs = []
+        for i, part in enumerate(self._parts):
+            outs.append(part.feed(chunk[i * b:(i + 1) * b]))
+            part.collected.clear()           # the parent keeps the joined output
+        n_completed = outs[0][2]
+        self.total_samples = self._parts[0].total_samples
+        self.rows_done = self._parts[0].rows_done
+        if not n_completed:
+            empty = np.zeros((self.batch, 0, self.config.num_wavelet_pairs), np.uint8)
+            return empty, empty, 0
+        if self.collect_host:
+            pos, neg = (np.concatenate([o[k] for o in outs]) for k in (0, 1))
+        else:
+            dev = self._parts[0].device
+            pos, neg = (torch.cat([o[k].to(dev, non_blocking=True) for o in outs])
+                        for k in (0, 1))
+        self.collected.append((pos, neg))
+        return pos, neg, n_completed
 
     def _emit(self, pos: torch.Tensor, neg: torch.Tensor, n_completed: int):
         if self.collect_host:

@@ -1,8 +1,9 @@
 """The port's CLI (``python -m lbaudiodetective_torch``) vs the JAX
 package's on WAV files written from a seed: enroll, then identify with
-and without ``--top-k``; compare, also ``--algorithm maa``; ``serve``'s
-flags and ``--sessions-dir``, and ``client``/``listen`` against a server
-in a thread; on the CPU (``--device cpu``).
+and without ``--top-k``; compare, also ``--algorithm maa``; ``dedup`` on
+one slot and on a ring of CPU slots; ``serve``'s flags (``--shard-library``
+too) and ``--sessions-dir``, and ``client``/``listen`` against a server in
+a thread; on the CPU (``--device cpu``).
 
 Tolerance: the printed scores (rounded to 4 digits) within 1e-4 of the
 JAX CLI's; the same track named; MAA counts and server answers equal."""
@@ -136,8 +137,40 @@ def test_serve_flags_reach_service(clips, tmp_path, monkeypatch):
     assert (svc.search_threshold, svc.top_k) == (2, 3)
     assert svc.stream_pool and svc.stream_flush_window_s == 0.1
     assert svc.device == torch.device("cpu")
-    with pytest.raises(SystemExit):
-        main(["serve", "--library", lib, "--shard-library", "2", *CPU])
+    assert main(["serve", "--library", lib, "--shard-library", "2", "--search-threshold",
+                 "2", *CPU]) == 0                      # boots on a 2-way sharded library
+    sharded = captured["svc"]
+    assert sharded.library.mesh.shape == {"data": 1, "library": 2}
+    assert len(sharded.library) == 3 and sharded.device == torch.device("cpu")
+    plain = serving.IdentificationService(svc.library, svc.names, search_threshold=2,
+                                          device="cpu")
+    payload = (clips / "crop_b.wav").read_bytes()
+    assert sharded.identify(payload) == plain.identify(payload)
+    assert sharded.identify(payload)["track"] == "b"
+
+
+def test_dedup_equals_jax_cli(clips, tmp_path, capsys):
+    """``dedup`` on the port's library file: equal candidates and scores to
+    the JAX CLI's on one slot, and the same on a ring of 2 and 3 CPU slots
+    (3 pads the library axis)."""
+    lib = str(tmp_path / "lib.npz")
+    assert main(["enroll", str(clips / "tracks"), "-o", lib, *CPU]) == 0
+    assert main(["enroll", str(clips / "more"), "-o", lib, "--append", *CPU]) == 0
+    capsys.readouterr()
+    outs = {}
+    for devices in ("1", "2", "3"):
+        assert main(["dedup", "--library", lib, "--top-k", "2", "--compact",
+                     "--devices", devices, *CPU]) == 0
+        outs[devices] = last_json(capsys)
+    assert jax_main(["dedup", "--library", lib, "--top-k", "2", "--compact"]) == 0
+    ref = last_json(capsys)
+    assert outs["1"] == outs["2"] == outs["3"] == ref
+    assert [e["track"] for e in ref] == ["a", "b", "c", "d"]
+    assert all(len(e["candidates"]) == 2 for e in ref)
+    assert main(["dedup", "--library", lib, "--threshold", "2", *CPU]) == 0
+    assert json.loads(capsys.readouterr().out) == []
+    assert main(["dedup", "--library", lib, "--top-k", "0", *CPU]) == 2
+    assert main(["dedup", "--library", lib, "--devices", "0", *CPU]) == 2
 
 
 def test_serve_sessions_dir_roundtrip(clips, tmp_path, monkeypatch):

@@ -504,3 +504,53 @@ def test_streaming_identifier_full_mode_launches_the_match_kernel(cuda_device):
         assert (counts["match_one_vs_many_fused"] > 0) == (mode == "full")
     assert results["full"] == results["incremental"]
     assert [t for t, _ in results["full"]] == [3, 1]
+
+
+def test_sharded_match_and_ring_on_four_slots_of_one_card(cuda_device, monkeypatch):
+    """The library-sharded match, ring all-pairs and ring dedup on a mesh of
+    four slots of one card: bit-equal to one slot (one launch a slot for
+    the match; n launches a slot for the ring, every visiting block split
+    into launches of at most MAX_QUERIES queries)."""
+    from lbaudiodetective_torch.parallel import sharded_packed as sp
+    from lbaudiodetective_torch.parallel.mesh import make_mesh, unshard
+
+    lp, ln, nl = _ragged_words(45, 203, 40, cuda_device)          # 203: pads to 204
+    lp[5:9], ln[5:9] = lp[0], ln[0]                               # duplicates: ties
+    nl[5:9] = nl[0]
+    one, four = (make_mesh(devices=[cuda_device] * n, library_parallelism=n) for n in (1, 4))
+    args = (lp, ln, nl, 100)
+    kernels.reset_launch_counts()
+    got = sp.match_library_sharded_packed(lp[3], ln[3], nl[3], *args, four)
+    assert kernels.launch_counts()["match_one_vs_many_fused"] == 4
+    assert [tuple(s.shape) for s in got] == [(51,)] * 4
+    ref = sp.match_library_sharded_packed(lp[3], ln[3], nl[3], *args, one)
+    assert torch.equal(unshard(got)[:203], ref[0][:203])
+    ring = unshard(sp.ring_all_pairs_scores_packed(*args, four))
+    ring_one = unshard(sp.ring_all_pairs_scores_packed(*args, one))
+    assert torch.equal(ring[:203, :203], ring_one[:203, :203])
+    monkeypatch.setattr(sp, "MAX_QUERIES", 16)                     # split the visiting blocks
+    assert torch.equal(unshard(sp.ring_all_pairs_scores_packed(*args, four)), ring)
+    dd = [unshard(x) for x in sp.ring_dedup_topk_packed(*args, four, k=5)]
+    dd_one = [unshard(x) for x in sp.ring_dedup_topk_packed(*args, one, k=5)]
+    assert torch.equal(dd[0][:203], dd_one[0][:203])              # the top-5 scores
+    full = ring.clone()
+    full.fill_diagonal_(-torch.inf)
+    want_s, want_i = _ring_order_top_k(full, 4, 5)
+    assert torch.equal(dd[0], want_s) and torch.equal(dd[1], want_i)
+
+
+def _ring_order_top_k(full: torch.Tensor, n: int, k: int):
+    """Each row's top-k of an all-pairs plane in a ring's candidate order:
+    slot d meets the blocks of slots d, d - 1, ... (mod n) in turn, so an
+    equal score goes to the earlier block, then to the lower index, as a
+    stable fold of ``[best | block]`` (``lax.top_k``) keeps it."""
+    l = full.shape[0] // n
+    scores, idx = [], []
+    for d in range(n):
+        perm = torch.cat([torch.arange(((d - s) % n) * l, ((d - s) % n + 1) * l)
+                          for s in range(n)]).to(full.device)
+        block = full[d * l:(d + 1) * l][:, perm]
+        order = torch.sort(block, dim=1, descending=True, stable=True).indices[:, :k]
+        scores.append(torch.gather(block, 1, order))
+        idx.append(perm[order])
+    return torch.cat(scores), torch.cat(idx)

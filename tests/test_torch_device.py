@@ -26,6 +26,10 @@ from lbaudiodetective_torch.serving import IdentificationService  # noqa: E402
 from lbaudiodetective_torch.streaming import StreamingIdentifier  # noqa: E402
 from lbaudiodetective_torch.streaming.incremental import (  # noqa: E402
     IncrementalLibraryMatcher, StreamSessionPool)
+from lbaudiodetective_torch.parallel import distributed  # noqa: E402
+from lbaudiodetective_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from lbaudiodetective_torch.parallel.mesh import make_mesh  # noqa: E402
+from lbaudiodetective_torch.parallel.pipeline import PipelinedIdentifier  # noqa: E402
 from tests._torch_common import synth_clip  # noqa: E402
 
 
@@ -104,6 +108,12 @@ ENTRY_POINTS = {
         _wav(tmp))),
     "maa.maa_compare_audio_files": (maa.maa_compare_audio_files,
                                     lambda tmp: maa.maa_compare_audio_files(_wav(tmp), _wav(tmp))),
+    "parallel.make_mesh": (make_mesh, lambda tmp: make_mesh(2)),
+    "parallel.PipelinedIdentifier": (PipelinedIdentifier, lambda tmp: PipelinedIdentifier(
+        _fp().pos[None], _fp().neg[None], np.array([6]))),
+    "parallel.distributed.initialize": (distributed.initialize,
+                                        lambda tmp: distributed.initialize("h:1", 2, 0)),
+    "parallel.dryrun_multichip": (dryrun_multichip, lambda tmp: dryrun_multichip(2)),
 }
 
 

@@ -4,8 +4,9 @@ concatenated stream bit for bit, on every step path (aligned, conv,
 fractional-hop gather, the rows_per_frame=256 ring), as
 tests/test_streaming.py holds the JAX package's; and equals the JAX
 package's own streaming on the same chunks (>= 99.9 % of bits, the port's
-bar against the JAX package).  The reference's sharded (mesh) test has no
-counterpart: the mesh option is not ported."""
+bar against the JAX package).  With a ``mesh`` the streams split over the
+data slots and the bits equal the unsharded extractor's on every step path,
+as tests/test_streaming.py holds the JAX package's sharded extractor."""
 
 import numpy as np
 import pytest
@@ -176,3 +177,46 @@ def test_device_is_explicit():
     assert all(isinstance(p, torch.Tensor) for p, _ in ext.collected)
     host = _stream(cfg, audio, 1024)
     assert ext.fingerprints() == host.fingerprints()
+
+
+@pytest.mark.parametrize("case", ["aligned", "conv", "gather"])
+def test_sharded_over_data_slots_equals_unsharded_and_jax(case):
+    """8 streams over the 4 data slots of a 1-D CPU mesh (two a slot, as in
+    the reference's sharded test): the same bits as the unsharded extractor, on the host
+    and kept on the device; the JAX package's sharded extractor within the
+    port's bar."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    from lbaudiodetective_tpu.streaming.runtime import StreamingExtractor as JaxStreaming
+    from lbaudiodetective_torch.parallel.mesh import Mesh, Slot
+
+    cfg, chunk = {"aligned": (FingerprintConfig(), 1024),
+                  "conv": (FingerprintConfig(hop_domain="proc"), 1024),
+                  "gather": (FingerprintConfig(integer_hop=False), 1024)}[case]
+    mesh = Mesh(np.array([Slot(i, torch.device("cpu")) for i in range(4)], dtype=object),
+                ("data",))
+    chunks = _noise(31, 8, 1024 * 20).reshape(8, 20, 1024).transpose(1, 0, 2)
+    plain = StreamingExtractor(batch=8, chunk_size=chunk, config=cfg, device="cpu")
+    sharded = StreamingExtractor(batch=8, chunk_size=chunk, config=cfg, device="cpu",
+                                 mesh=mesh)
+    on_device = StreamingExtractor(batch=8, chunk_size=chunk, config=cfg, device="cpu",
+                                   collect_host=False, mesh=mesh)
+    jax_sharded = JaxStreaming(batch=8, chunk_size=chunk, config=jax_config(cfg),
+                               mesh=JaxMesh(np.array(jax.devices()[:4]), ("data",)))
+    for c in chunks:
+        n_plain = plain.feed(c)[2]
+        assert sharded.feed(c)[2] == on_device.feed(c)[2] == n_plain
+        jax_sharded.feed(c)
+    assert len(sharded._parts) == 4 and sharded.rows_done == plain.rows_done
+    fps = plain.fingerprints()
+    assert fps[0].num_subfingerprints >= 1
+    for fp, a, b, j in zip(fps, sharded.fingerprints(), on_device.fingerprints(),
+                           jax_sharded.fingerprints()):
+        assert a == fp and b == fp
+        assert bit_agreement(a.pos, a.neg, j.pos, j.neg) >= 0.999
+    sharded.reset()
+    assert sharded.rows_done == 0 and not sharded.collected
+    assert all(p.rows_done == 0 for p in sharded._parts)
+    with pytest.raises(ValueError, match="batch must divide"):
+        StreamingExtractor(batch=6, config=cfg, device="cpu", mesh=mesh)
