@@ -21,6 +21,7 @@ from lbaudiodetective_torch.ops.extract import (
     bucket_subfingerprints, extract_fingerprint, extract_fingerprint_batch)
 from lbaudiodetective_torch.ops.match import match_fingerprints
 from lbaudiodetective_torch.ops.match_packed import match_one_vs_many_packed
+from lbaudiodetective_torch.utils import profiling
 
 
 class AudioDetective:
@@ -110,11 +111,16 @@ class AudioDetective:
         return self.process_decoded_batch(clips)
 
     def process_decoded_batch(self, clips: list[DecodedAudio]) -> list[Fingerprint]:
-        pos, neg, n_subs = extract_fingerprint_batch(clips, self.config,
-                                                     device=self.device)
-        return [Fingerprint.from_planes(pos[i, :n], neg[i, :n],
-                                        self.config.subfingerprint_length)
-                for i, n in enumerate(n_subs)]
+        """All clips in one padded device dispatch: the span
+        ``detective.batch`` (``clips``) over the extraction's spans and
+        ``fingerprint.wrap``, inside ``utils.profiling.recording()``."""
+        with profiling.stage("detective.batch", clips=len(clips)):
+            pos, neg, n_subs = extract_fingerprint_batch(clips, self.config,
+                                                         device=self.device)
+            with profiling.stage("fingerprint.wrap", clips=len(n_subs)):
+                return [Fingerprint.from_planes(pos[i, :n], neg[i, :n],
+                                                self.config.subfingerprint_length)
+                        for i, n in enumerate(n_subs)]
 
     def compare_audio_files(self, path1: str, path2: str,
                             comparison_range: int = 0) -> float:

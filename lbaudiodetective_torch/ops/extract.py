@@ -27,6 +27,12 @@ accelerator):
 A config the reference's kernels refuse (window 1024 with a fractional hop)
 raises ``ValueError`` on CUDA, as the reference does on its accelerator; no
 CUDA path runs the plain versions of the kernels.
+
+``extract_fingerprint`` and ``extract_fingerprint_batch`` record the spans
+``extract.pad`` (``clips``, ``samples_valid``, ``samples_padded``),
+``extract.h2d`` (``bytes``), ``extract.launch`` (the kernels' enqueue) and
+``extract.d2h`` (the copy back, which waits for the device) inside
+``utils.profiling.recording()``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from lbaudiodetective_torch.ops.kernels.fused_rows import (
     fused_band_rows, kernel_eligible, reaches_v3, rows_arrays)
 from lbaudiodetective_torch.ops.kernels.select_signs import (
     FRAME, TOP, select_sign_classes, select_sign_classes_plain)
+from lbaudiodetective_torch.utils import profiling
 
 
 def rows_impl(config: FingerprintConfig, device: torch.device) -> str:
@@ -252,12 +259,13 @@ def extract_fingerprint(audio: DecodedAudio, config: FingerprintConfig | None = 
         return (np.zeros((0, pairs), np.uint8), np.zeros((0, pairs), np.uint8), 0)
     n_rows = rows_for_subfingerprints(config, bucket)
     t_pad = required_padded_length(config, n_rows)
-    x = np.zeros(t_pad, np.float32)
-    t = min(audio.samples.shape[0], t_pad)
-    x[:t] = audio.samples[:t]
-    pos, neg = extract_fingerprint_padded(
-        torch.from_numpy(x).to(device), torch.tensor(n_sub), config, n_rows)
-    return pos.cpu().numpy()[:n_sub], neg.cpu().numpy()[:n_sub], n_sub
+    with profiling.stage("extract.pad", clips=1, samples_padded=t_pad) as span:
+        x = np.zeros(t_pad, np.float32)
+        t = min(audio.samples.shape[0], t_pad)
+        x[:t] = audio.samples[:t]
+        span.set(samples_valid=t)
+    pos, neg = _extract_host(x, torch.tensor(n_sub), config, n_rows, device)
+    return pos[:n_sub], neg[:n_sub], n_sub
 
 
 def extract_fingerprint_batch(clips: list[DecodedAudio],
@@ -286,13 +294,27 @@ def extract_fingerprint_batch(clips: list[DecodedAudio],
                 np.zeros((b_out, 0, pairs), np.uint8), n_subs)
     n_rows = rows_for_subfingerprints(config, s_max)
     t_pad = required_padded_length(config, n_rows)
-    batch = np.zeros((b_pad, t_pad), dtype=np.float32)
-    for i, c in enumerate(clips):
-        t = min(c.samples.shape[0], t_pad)
-        batch[i, :t] = c.samples[:t]
+    with profiling.stage("extract.pad", clips=b_out, samples_padded=b_pad * t_pad) as span:
+        batch = np.zeros((b_pad, t_pad), dtype=np.float32)
+        valid = 0
+        for i, c in enumerate(clips):
+            t = min(c.samples.shape[0], t_pad)
+            batch[i, :t] = c.samples[:t]
+            valid += t
+        span.set(samples_valid=valid)
     n_subs_pad = np.zeros(b_pad, np.int32)
     n_subs_pad[:b_out] = n_subs
-    pos, neg = extract_fingerprint_padded(
-        torch.from_numpy(batch).to(device), torch.from_numpy(n_subs_pad), config,
-        n_rows)
-    return pos.cpu().numpy()[:b_out], neg.cpu().numpy()[:b_out], n_subs
+    pos, neg = _extract_host(batch, torch.from_numpy(n_subs_pad), config, n_rows, device)
+    return pos[:b_out], neg[:b_out], n_subs
+
+
+def _extract_host(audio: np.ndarray, n_valid_sub: torch.Tensor, config: FingerprintConfig,
+                  n_rows: int, device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`extract_fingerprint_padded` on padded host audio: the copy to
+    ``device``, the launch and the copy back, a span each."""
+    with profiling.stage("extract.h2d", bytes=audio.nbytes):
+        x = torch.from_numpy(audio).to(device)
+    with profiling.stage("extract.launch"):
+        pos, neg = extract_fingerprint_padded(x, n_valid_sub, config, n_rows)
+    with profiling.stage("extract.d2h"):
+        return pos.cpu().numpy(), neg.cpu().numpy()

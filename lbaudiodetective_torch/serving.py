@@ -36,6 +36,18 @@ kernels compute at one precision whatever its value.  A
 :class:`~lbaudiodetective_torch.parallel.sharded_library.
 ShardedFingerprintLibrary` is served unchanged: the service runs on its
 first slot's device, and each slot scans its shard.
+
+Inside ``profiling.recording()`` each request is a ``serve.request`` span
+(attributes ``method``, ``route``) over ``serve.parse``, the pool's spans
+and ``serve.respond``.  A pooled post: ``pool.enqueue`` (``waited_ns`` to
+take ``_pcond``); the leader's ``pool.window`` (``waited_ns`` to take
+``_pcond``, ``timeout_ns`` the window; past it, the wait to take ``_pcond``
+back) or a follower's ``pool.wait``; ``pool.dispatch_wait`` (taking
+``_lock``); ``pool.flush`` (``cause``, ``sessions``, ``k_max``, ``rows``; a
+post-caused one lists the ``requests`` it answered, and each of their
+``serve.request`` spans names it in ``flush``); ``pool.top_k`` (``cause``,
+``slots_scored``, ``slots_used``).  ``pool.close`` and ``pool.open`` carry
+``waited_ns`` for the locks.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from lbaudiodetective_torch.models.library import FingerprintLibrary
 from lbaudiodetective_torch.ops.extract import extract_fingerprint, extract_fingerprint_batch
 from lbaudiodetective_torch.streaming.incremental import (
     IncrementalLibraryMatcher, StreamSessionPool)
+from lbaudiodetective_torch.utils import profiling
 
 
 class IdentificationService:
@@ -138,12 +151,18 @@ class IdentificationService:
         self._ppending: list[dict] = []
 
     @contextlib.contextmanager
-    def _dispatch(self):
-        """Device work: under ``_lock``, with the service's device as the
-        calling thread's current device."""
-        with self._lock, (torch.cuda.device(self.device) if self.device.type == "cuda"
-                          else contextlib.nullcontext()):
-            yield
+    def _dispatch(self, wait_span: str = "serve.dispatch_wait"):
+        """Device work: under ``_lock`` (acquiring it is the span
+        ``wait_span``), with the service's device as the calling thread's
+        current device."""
+        with profiling.stage(wait_span):
+            self._lock.acquire()
+        try:
+            with (torch.cuda.device(self.device) if self.device.type == "cuda"
+                  else contextlib.nullcontext()):
+                yield
+        finally:
+            self._lock.release()
 
     @property
     def _use_search(self) -> bool:
@@ -287,24 +306,27 @@ class IdentificationService:
     # 256), so sessions are capped and idle ones evicted LRU.
 
     def _parse_fingerprint_text(self, payload: bytes) -> Fingerprint:
-        try:
-            text = payload.decode("ascii")
-        except UnicodeDecodeError as e:
-            raise errors.InvalidArgumentError(
-                f"fingerprint payload is not ASCII: {e}") from None
-        text = text.strip()
-        if text and set(text) - set("01+"):
-            raise errors.InvalidArgumentError(
-                "fingerprint string may contain only '0', '1' and '+'")
-        first = text.split("+", 1)[0] if text else ""
-        if first and len(first) != self.config.subfingerprint_length:
-            raise errors.InvalidArgumentError(
-                f"fingerprint subfingerprint length {len(first)} does not "
-                f"match server config ({self.config.subfingerprint_length})")
-        try:
-            return Fingerprint.from_string(text, self.config.subfingerprint_length)
-        except ValueError as e:                 # ragged subfingerprints
-            raise errors.InvalidArgumentError(str(e)) from None
+        with profiling.stage("serve.parse", bytes=len(payload)) as span:
+            try:
+                text = payload.decode("ascii")
+            except UnicodeDecodeError as e:
+                raise errors.InvalidArgumentError(
+                    f"fingerprint payload is not ASCII: {e}") from None
+            text = text.strip()
+            if text and set(text) - set("01+"):
+                raise errors.InvalidArgumentError(
+                    "fingerprint string may contain only '0', '1' and '+'")
+            first = text.split("+", 1)[0] if text else ""
+            if first and len(first) != self.config.subfingerprint_length:
+                raise errors.InvalidArgumentError(
+                    f"fingerprint subfingerprint length {len(first)} does not "
+                    f"match server config ({self.config.subfingerprint_length})")
+            try:
+                fp = Fingerprint.from_string(text, self.config.subfingerprint_length)
+            except ValueError as e:             # ragged subfingerprints
+                raise errors.InvalidArgumentError(str(e)) from None
+            span.set(rows=fp.num_subfingerprints)
+            return fp
 
     def stream_open(self) -> dict:
         if len(self.library) > self.stream_library_max:
@@ -325,12 +347,15 @@ class IdentificationService:
                         "active streams; retry shortly")
                 del self._sessions[victim]
                 if self.stream_pool:
-                    with self._pcond, self._dispatch():
+                    with (profiling.stage("pool.close", cause="evict") as span, self._pcond,
+                          self._dispatch("pool.dispatch_wait")):
+                        span.elapsed("waited_ns")
                         self._pool.close(victim)
             sid = uuid.uuid4().hex[:16]
             sess = {"t": time.monotonic(), "lock": threading.Lock()}
             if self.stream_pool:
-                with self._pcond:
+                with profiling.stage("pool.open") as span, self._pcond:
+                    span.elapsed("waited_ns")
                     self._pool.open(sid)
             else:
                 with self._dispatch():
@@ -366,8 +391,10 @@ class IdentificationService:
         """Pooled post: queue the increment, then fold every queued post in
         one call (leader/follower over ``stream_flush_window_s``, as
         identify batches) and answer all waiters from one top-k."""
-        entry = {"sid": sid, "done": threading.Event(), "error": None, "result": None}
-        with self._pcond:
+        entry = {"sid": sid, "done": threading.Event(), "error": None, "result": None,
+                 "request": profiling.current().request, "flush": None}
+        with profiling.stage("pool.enqueue", rows=k) as span, self._pcond:
+            span.elapsed("waited_ns")
             if sid not in self._pool._slot:
                 raise errors.InvalidArgumentError(f"unknown session {sid!r}")
             if k:
@@ -382,18 +409,24 @@ class IdentificationService:
             if len(self._ppending) >= self.max_sessions:
                 self._pcond.notify_all()         # wake the leader early
         if is_leader:
-            with self._pcond:
-                if self.stream_flush_window_s > 0:
-                    # The wait releases the lock, so concurrent posts can
-                    # join this flush; a full window wakes the leader early.
-                    self._pcond.wait_for(lambda: len(self._ppending) >= self.max_sessions,
-                                         timeout=self.stream_flush_window_s)
+            with contextlib.ExitStack() as held:
+                with profiling.stage("pool.window",
+                                     timeout_ns=int(self.stream_flush_window_s * 1e9)) as span:
+                    held.enter_context(self._pcond)
+                    span.elapsed("waited_ns")
+                    if self.stream_flush_window_s > 0:
+                        # The wait releases the lock, so concurrent posts can
+                        # join this flush; a full window wakes the leader early.
+                        self._pcond.wait_for(lambda: len(self._ppending) >= self.max_sessions,
+                                             timeout=self.stream_flush_window_s)
                 batch, self._ppending = self._ppending, []
                 try:
-                    with self._dispatch():
-                        self._pool.flush()
-                        sc, ix = self._pool.top_k(self.top_k)
+                    with self._dispatch("pool.dispatch_wait"):
+                        flush = self._fold("post", [en["request"] for en in batch])
+                        sc, ix = self._rank("post", len({self._pool._slot.get(en["sid"])
+                                                         for en in batch} - {None}))
                     for en in batch:
+                        en["flush"] = flush
                         slot = self._pool._slot.get(en["sid"])
                         if slot is None:            # closed while queued
                             en["error"] = errors.InvalidArgumentError(
@@ -408,11 +441,31 @@ class IdentificationService:
                     for en in batch:
                         en["done"].set()
         else:
-            entry["done"].wait()
+            with profiling.stage("pool.wait"):
+                entry["done"].wait()
+        profiling.current().set(flush=entry["flush"])
         if entry["error"] is not None:
             raise entry["error"]
         sess["t"] = time.monotonic()
         return entry["result"]
+
+    def _fold(self, cause: str, requests=None):
+        """``StreamSessionPool.flush`` as the span ``pool.flush``; returns
+        the span's id (None while nothing records).  Callers hold
+        ``_pcond`` and ``_lock``."""
+        with profiling.stage("pool.flush", cause=cause) as span:
+            self._pool.flush()
+            span.set(**self._pool.last_flush)
+            if requests is not None:
+                span.set(requests=requests)
+        return span.id
+
+    def _rank(self, cause: str, slots_used: int):
+        """``StreamSessionPool.top_k`` (every slot's scores, the top-k and
+        the copy to the host) as the span ``pool.top_k``."""
+        with profiling.stage("pool.top_k", cause=cause, slots_scored=self._pool.slots,
+                             slots_used=slots_used):
+            return self._pool.top_k(self.top_k)
 
     def _top_result(self, sc: np.ndarray, ix: np.ndarray, n: int) -> dict:
         if n == 0:
@@ -459,8 +512,8 @@ class IdentificationService:
             if fname.endswith(".npz") and fname not in live:
                 os.unlink(os.path.join(dir_path, fname))
         if self.stream_pool:
-            with self._pcond, self._dispatch():
-                self._pool.flush()          # pending posts become device state
+            with self._pcond, self._dispatch("pool.dispatch_wait"):
+                self._fold("save")          # pending posts become device state
                 for sid, _ in items:
                     self._pool.save_session(sid, os.path.join(dir_path, f"{sid}.npz"))
             return len(items)
@@ -511,11 +564,11 @@ class IdentificationService:
         become evictable."""
         sess = self._stream_session(sid)
         if self.stream_pool:
-            with self._pcond, self._dispatch():
+            with self._pcond, self._dispatch("pool.dispatch_wait"):
                 if sid not in self._pool._slot:
                     raise errors.InvalidArgumentError(f"unknown session {sid!r}")
-                self._pool.flush()          # fold this session's queued posts
-                sc, ix = self._pool.top_k(self.top_k)
+                self._fold("peek")          # fold this session's queued posts
+                sc, ix = self._rank("peek", 1)
                 sess["t"] = time.monotonic()
                 slot = self._pool._slot[sid]
                 return self._pool_result(sid, sc[slot], ix[slot])
@@ -529,11 +582,13 @@ class IdentificationService:
         if sess is None:
             raise errors.InvalidArgumentError(f"unknown session {sid!r}")
         if self.stream_pool:
-            with self._pcond, self._dispatch():
+            with (profiling.stage("pool.close", cause="close") as span, self._pcond,
+                  self._dispatch("pool.dispatch_wait")):
+                span.elapsed("waited_ns")
                 if sid not in self._pool._slot:
                     raise errors.InvalidArgumentError(f"unknown session {sid!r}")
-                self._pool.flush()          # fold any queued posts first
-                sc, ix = self._pool.top_k(self.top_k)
+                self._fold("close")         # fold any queued posts first
+                sc, ix = self._rank("close", 1)
                 slot = self._pool._slot[sid]
                 result = self._pool_result(sid, sc[slot], ix[slot])
                 self._pool.close(sid)
@@ -551,6 +606,13 @@ class IdentificationServer(ThreadingHTTPServer):
     request_queue_size = 128
 
 
+def _route(path: str) -> str:
+    """A request path with a session id in it replaced by ``<id>``."""
+    if path.startswith("/stream/") and path != "/stream/open":
+        return "/stream/<id>/close" if path.endswith("/close") else "/stream/<id>"
+    return path
+
+
 def make_server(service: IdentificationService, host: str = "127.0.0.1",
                 port: int = 0) -> IdentificationServer:
     """Build (not start) the HTTP server; ``server.server_address[1]`` is the
@@ -558,14 +620,24 @@ def make_server(service: IdentificationService, host: str = "127.0.0.1",
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, obj: dict) -> None:
-            body = json.dumps(obj).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with profiling.stage("serve.respond", status=code) as span:
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                span.set(bytes=len(body))
 
         def do_GET(self):
+            with profiling.stage("serve.request", method="GET", route=_route(self.path)):
+                self._get()
+
+        def do_POST(self):
+            with profiling.stage("serve.request", method="POST", route=_route(self.path)):
+                self._post()
+
+        def _get(self):
             try:
                 if self.path == "/healthz":
                     self._send(200, service.health())
@@ -578,7 +650,7 @@ def make_server(service: IdentificationService, host: str = "127.0.0.1",
             except Exception as e:  # noqa: BLE001 - the serving edge must not die
                 self._send(500, {"error": str(e)})
 
-        def do_POST(self):
+        def _post(self):
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 payload = self.rfile.read(length)

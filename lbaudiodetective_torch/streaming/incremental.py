@@ -441,6 +441,9 @@ class StreamSessionPool:
         self._slot: dict[str, int] = {}
         self._age = np.zeros(slots, np.int64)
         self._pending: dict[str, list[tuple[np.ndarray, np.ndarray]]] = {}
+        #: The work of the latest :meth:`flush`: sessions folded, the most
+        #: subfingerprints a session folded, and subfingerprints folded.
+        self.last_flush = {"sessions": 0, "k_max": 0, "rows": 0}
 
     def __len__(self) -> int:
         return len(self._slot)
@@ -478,6 +481,7 @@ class StreamSessionPool:
         """Fold every queued post in one batched call; returns the number
         of sessions that advanced."""
         if not self._pending:
+            self.last_flush = {"sessions": 0, "k_max": 0, "rows": 0}
             return 0
         merged = {sid: (np.concatenate([p for p, _ in parts]),
                         np.concatenate([q for _, q in parts]))
@@ -494,6 +498,7 @@ class StreamSessionPool:
         self._m.update_slots(qp, qn, k_valid, self._age)
         self._age = self._age + k_valid
         self._pending.clear()
+        self.last_flush = {"sessions": len(merged), "k_max": k_max, "rows": int(k_valid.sum())}
         return len(merged)
 
     def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:

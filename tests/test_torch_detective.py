@@ -146,3 +146,39 @@ def test_cuda_detective_raises_without_gpu():
         pytest.skip("a GPU is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AudioDetective(device="cuda")
+
+
+def test_process_decoded_batch_records_its_span_tree():
+    """Inside ``recording()`` a batch is a ``detective.batch`` root over the
+    padding, the copies, the launch and the wrapping, with the counts of
+    each; the fingerprints are those of an unrecorded call."""
+    from lbaudiodetective_torch.io.decode import DecodedAudio
+    from lbaudiodetective_torch.ops.extract import (
+        bucket_subfingerprints, required_padded_length, rows_for_subfingerprints)
+    from lbaudiodetective_torch.utils import profiling
+
+    det = AudioDetective(device="cpu")
+    cfg = det.config
+    sig = brown_noise(62, 3, 3 * 5512).astype(np.float32)
+    lengths = (3 * 5512, 2 * 5512, 5512)
+    clips = [DecodedAudio(x[:n], cfg.processing_sample_rate, n * 8, 44100.0)
+             for x, n in zip(sig, lengths)]
+    plain = det.process_decoded_batch(clips)
+    with profiling.recording() as rec:
+        fps = det.process_decoded_batch(clips)
+    assert fps == plain
+    spans = {s.name: s for s in rec.spans}
+    assert [s.name for s in rec.spans] == ["extract.pad", "extract.h2d", "extract.launch",
+                                           "extract.d2h", "fingerprint.wrap", "detective.batch"]
+    root = spans["detective.batch"]
+    assert root.parent is None and root.attrs == {"clips": 3}
+    for s in rec.spans[:-1]:
+        assert s.parent == root.id and s.request == root.id and s.thread == root.thread
+        assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+    n_sub = max(cfg.num_subfingerprints(c.file_frames, c.proc_frames) for c in clips)
+    n_rows = rows_for_subfingerprints(cfg, bucket_subfingerprints(n_sub))
+    t_pad = required_padded_length(cfg, n_rows)
+    assert spans["extract.pad"].attrs == {"clips": 3, "samples_padded": 3 * t_pad,
+                                          "samples_valid": sum(min(n, t_pad) for n in lengths)}
+    assert spans["extract.h2d"].attrs == {"bytes": 3 * t_pad * 4}
+    assert spans["fingerprint.wrap"].attrs == {"clips": 3}

@@ -12,6 +12,7 @@ in either package, and one socket round trip through ``make_server``."""
 import http.client
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -341,3 +342,88 @@ def test_concurrent_mixed_load_keeps_every_session_exact(case):
         assert closed["score"] == one_shot["score"]
         assert closed["n"] == fps[i % 4].num_subfingerprints
     assert len(results) == n_threads
+
+
+def test_pooled_posts_over_http_record_their_spans(case):
+    """Inside ``recording()``, 8 sessions posting at once over HTTP, twice:
+    every request is one ``serve.request`` root whose spans share its
+    request id, the flushes fold every post, each post names the flush that
+    answered it, and the top-k spans count the pool's slots."""
+    from lbaudiodetective_torch.utils import profiling
+
+    port, _ = services(case, stream_pool=True, stream_flush_window_s=0.2, max_sessions=8)
+    srv = serving.make_server(port)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection(*srv.server_address, timeout=60)
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+
+    subs = [fp.to_string().split("+") for fp in case[3]]
+    with profiling.recording() as rec:
+        try:
+            sids = [call("POST", "/stream/open")[1]["session"] for _ in range(8)]
+            for r in range(2):
+                out = [None] * 8
+                posts = [threading.Thread(target=lambda i=i: out.__setitem__(i, call(
+                    "POST", f"/stream/{sids[i]}",
+                    "+".join(subs[i % 4][3 * r:3 * r + 3]).encode()))) for i in range(8)]
+                for t in posts:
+                    t.start()
+                for t in posts:
+                    t.join(timeout=120)
+                assert not any(t.is_alive() for t in posts)
+                assert [o[0] for o in out] == [200] * 8
+                assert [o[1]["n"] for o in out] == [3 * r + 3] * 8
+            assert call("GET", f"/stream/{sids[0]}")[0] == 200
+            assert call("POST", f"/stream/{sids[1]}/close")[0] == 200
+            # A handler closes its root span after the client has its
+            # answer, and a span that closes after the recording is not
+            # kept: wait for all 26 roots.
+            deadline = time.monotonic() + 60
+            while (sum(s.name == "serve.request" for s in list(rec.spans)) < 26
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+    spans = {s.id: s for s in rec.spans}
+    roots = [s for s in rec.spans if s.name == "serve.request"]
+    assert all(s.parent is None and s.request == s.id for s in roots)
+    for s in rec.spans:
+        if s.parent is not None:
+            assert s.request == spans[s.parent].request and s.thread == spans[s.parent].thread
+    assert sorted(s.attrs["route"] for s in roots) == sorted(
+        ["/stream/open"] * 8 + ["/stream/<id>"] * 17 + ["/stream/<id>/close"])
+    posts = [s for s in roots if s.attrs["route"] == "/stream/<id>" and s.attrs["method"] == "POST"]
+    assert len(posts) == 16
+    flushes = {s.id: s for s in rec.spans if s.name == "pool.flush"}
+    by_cause = {c: [f for f in flushes.values() if f.attrs["cause"] == c]
+                for c in ("post", "peek", "close")}
+    assert len(by_cause["post"]) + len(by_cause["peek"]) + len(by_cause["close"]) == len(flushes)
+    assert sum(f.attrs["sessions"] for f in flushes.values()) == 16
+    assert sum(f.attrs["rows"] for f in flushes.values()) == 16 * 3
+    for p in posts:
+        flush = flushes[p.attrs["flush"]]
+        assert flush.attrs["cause"] == "post" and p.request in flush.attrs["requests"]
+        assert flush.start_ns >= p.start_ns
+    answered = sorted(r for f in by_cause["post"] for r in f.attrs["requests"])
+    assert answered == sorted(p.request for p in posts)
+    tops = [s for s in rec.spans if s.name == "pool.top_k"]
+    assert all(t.attrs["slots_scored"] == port._pool.slots == 8 for t in tops)
+    for t in tops:
+        (flush,) = [f for f in flushes.values()
+                    if f.parent == t.parent and f.request == t.request]
+        used = len(flush.attrs["requests"]) if t.attrs["cause"] == "post" else 1
+        assert t.attrs["cause"] == flush.attrs["cause"] and t.attrs["slots_used"] == used
+    assert {t.attrs["cause"] for t in tops} == {"post", "peek", "close"}
+    names = {s.name for s in rec.spans}
+    assert {"serve.parse", "pool.enqueue", "pool.window", "pool.dispatch_wait",
+            "serve.respond", "pool.close", "pool.open"} <= names
+    assert all(s.attrs["waited_ns"] >= 0 for s in rec.spans
+               if s.name in ("pool.enqueue", "pool.window", "pool.close", "pool.open"))
