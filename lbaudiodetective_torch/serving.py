@@ -46,8 +46,9 @@ back) or a follower's ``pool.wait``; ``pool.dispatch_wait`` (taking
 ``_lock``); ``pool.flush`` (``cause``, ``sessions``, ``k_max``, ``rows``; a
 post-caused one lists the ``requests`` it answered, and each of their
 ``serve.request`` spans names it in ``flush``); ``pool.top_k`` (``cause``,
-``slots_scored``, ``slots_used``).  ``pool.close`` and ``pool.open`` carry
-``waited_ns`` for the locks.
+``slots_scored``, ``slots_used``), which scores only the slots it answers:
+those of a flush's posting sessions still open, the one slot of a peek or a
+close.  ``pool.close`` and ``pool.open`` carry ``waited_ns`` for the locks.
 """
 
 from __future__ import annotations
@@ -142,8 +143,9 @@ class IdentificationService:
         self._template: IncrementalLibraryMatcher | None = None
         #: Pooled sessions share one slot-batched matcher
         #: (``StreamSessionPool``): posts arriving within
-        #: ``stream_flush_window_s`` fold in one call and one top-k.  Scores
-        #: are bitwise equal to the per-session matchers'.
+        #: ``stream_flush_window_s`` fold in one call and one top-k of their
+        #: sessions' slots.  Scores are bitwise equal to the per-session
+        #: matchers'.
         self.stream_pool = stream_pool
         self.stream_flush_window_s = stream_flush_window_s
         self._pool: StreamSessionPool | None = None
@@ -390,7 +392,8 @@ class IdentificationService:
     def _stream_update_pooled(self, sess: dict, sid: str, fp, k: int) -> dict:
         """Pooled post: queue the increment, then fold every queued post in
         one call (leader/follower over ``stream_flush_window_s``, as
-        identify batches) and answer all waiters from one top-k."""
+        identify batches) and answer all waiters from one top-k of the
+        slots of their sessions still open."""
         entry = {"sid": sid, "done": threading.Event(), "error": None, "result": None,
                  "request": profiling.current().request, "flush": None}
         with profiling.stage("pool.enqueue", rows=k) as span, self._pcond:
@@ -423,16 +426,19 @@ class IdentificationService:
                 try:
                     with self._dispatch("pool.dispatch_wait"):
                         flush = self._fold("post", [en["request"] for en in batch])
-                        sc, ix = self._rank("post", len({self._pool._slot.get(en["sid"])
-                                                         for en in batch} - {None}))
+                        # A session's row in the top-k; one closed while
+                        # queued has none.
+                        row = {sid: i for i, sid in enumerate(dict.fromkeys(
+                            en["sid"] for en in batch if en["sid"] in self._pool._slot))}
+                        sc, ix = self._rank("post", list(row))
                     for en in batch:
                         en["flush"] = flush
-                        slot = self._pool._slot.get(en["sid"])
-                        if slot is None:            # closed while queued
+                        i = row.get(en["sid"])
+                        if i is None:
                             en["error"] = errors.InvalidArgumentError(
                                 f"unknown session {en['sid']!r}")
                         else:
-                            en["result"] = self._pool_result(en["sid"], sc[slot], ix[slot])
+                            en["result"] = self._pool_result(en["sid"], sc[i], ix[i])
                 except Exception as e:  # noqa: BLE001 - fail all waiters
                     for en in batch:
                         if en["error"] is None and en["result"] is None:
@@ -460,12 +466,15 @@ class IdentificationService:
                 span.set(requests=requests)
         return span.id
 
-    def _rank(self, cause: str, slots_used: int):
-        """``StreamSessionPool.top_k`` (every slot's scores, the top-k and
-        the copy to the host) as the span ``pool.top_k``."""
-        with profiling.stage("pool.top_k", cause=cause, slots_scored=self._pool.slots,
-                             slots_used=slots_used):
-            return self._pool.top_k(self.top_k)
+    def _rank(self, cause: str, sids: list[str]):
+        """``StreamSessionPool.top_k`` of the sessions ``sids`` (their slots'
+        scores, the top-k and the copy to the host; rows in their order) as
+        the span ``pool.top_k``: ``slots_scored`` counts the rows scored,
+        ``slots_used`` the sessions answered."""
+        with profiling.stage("pool.top_k", cause=cause, slots_used=len(sids)) as span:
+            sc, ix = self._pool.top_k(self.top_k, sids)
+            span.set(slots_scored=len(sc))
+            return sc, ix
 
     def _top_result(self, sc: np.ndarray, ix: np.ndarray, n: int) -> dict:
         if n == 0:
@@ -568,10 +577,9 @@ class IdentificationService:
                 if sid not in self._pool._slot:
                     raise errors.InvalidArgumentError(f"unknown session {sid!r}")
                 self._fold("peek")          # fold this session's queued posts
-                sc, ix = self._rank("peek", 1)
+                sc, ix = self._rank("peek", [sid])
                 sess["t"] = time.monotonic()
-                slot = self._pool._slot[sid]
-                return self._pool_result(sid, sc[slot], ix[slot])
+                return self._pool_result(sid, sc[0], ix[0])
         with sess["lock"], self._dispatch():
             sess["t"] = time.monotonic()
             return self._stream_result(sess["m"])
@@ -588,9 +596,8 @@ class IdentificationService:
                 if sid not in self._pool._slot:
                     raise errors.InvalidArgumentError(f"unknown session {sid!r}")
                 self._fold("close")         # fold any queued posts first
-                sc, ix = self._rank("close", 1)
-                slot = self._pool._slot[sid]
-                result = self._pool_result(sid, sc[slot], ix[slot])
+                sc, ix = self._rank("close", [sid])
+                result = self._pool_result(sid, sc[0], ix[0])
                 self._pool.close(sid)
                 return result
         with sess["lock"], self._dispatch():

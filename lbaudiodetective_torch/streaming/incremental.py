@@ -322,15 +322,35 @@ class IncrementalLibraryMatcher:
                     _fold_one(d_a, d_b, hits[slots, t], sh.inv_lib, sh.row_valid,
                               inv_q[slots, t], slots, int(i))
 
-    def scores_slots(self, ages) -> np.ndarray:
-        """``[batch, L]`` scores at per-slot ages ``ages`` (``[batch]``)."""
-        ages = torch.as_tensor(np.asarray(ages, np.int64), device=self.device)
-        return self._scores(self._state[0], ages).cpu().numpy()
+    def _slot_scores(self, ages, slots) -> torch.Tensor:
+        """``[len(slots), L]`` scores of ``slots`` (every slot when None),
+        rows in their order, at per-slot ages ``ages`` (``[batch]``).  A
+        slot's scores read only its own accumulators and age, so only the
+        rows asked for are scored: a view of one slot, an ``index_select``
+        of several."""
+        ages = np.asarray(ages, np.int64)
+        group = self._state[0]
+        if slots is not None:
+            slots = np.asarray(slots, np.int64).reshape(-1)
+            ages = ages[slots]
+            if slots.size == 1:
+                s = int(slots[0])
+                group = [(d_a[s:s + 1], d_b[s:s + 1]) for d_a, d_b in group]
+            else:
+                idx = torch.from_numpy(slots)
+                group = [tuple(x.index_select(0, idx.to(x.device)) for x in state)
+                         for state in group]
+        return self._scores(group, torch.as_tensor(ages, device=self.device))
 
-    def top_k_slots(self, k: int, ages) -> tuple[np.ndarray, np.ndarray]:
-        """Device-side top-k at per-slot ages (see :meth:`top_k`)."""
-        ages = torch.as_tensor(np.asarray(ages, np.int64), device=self.device)
-        return _top_k(self._scores(self._state[0], ages), min(k, self._true_l))
+    def scores_slots(self, ages, slots=None) -> np.ndarray:
+        """``[len(slots), L]`` scores of the slots ``slots`` (``[batch, L]``
+        when None) at per-slot ages ``ages`` (``[batch]``)."""
+        return self._slot_scores(ages, slots).cpu().numpy()
+
+    def top_k_slots(self, k: int, ages, slots=None) -> tuple[np.ndarray, np.ndarray]:
+        """Device-side top-k (see :meth:`top_k`) of the slots ``slots``
+        (every slot when None), rows in their order, at per-slot ages."""
+        return _top_k(self._slot_scores(ages, slots), min(k, self._true_l))
 
     def reset_slot(self, slot: int) -> None:
         """Zero one slot's accumulators (slot freed for a new session)."""
@@ -420,9 +440,12 @@ class StreamSessionPool:
     matcher.
 
     Posts are queued and all of them fold in one ``update_slots`` call per
-    :meth:`flush`, with every slot's result in one ``top_k_slots``; each
-    slot's scores are bitwise equal to a dedicated per-session matcher (its
-    terms accumulate in its own ascending arrival order).
+    :meth:`flush`; one ``top_k_slots`` then scores the slots of the
+    sessions whose results are read (:meth:`top_k` with ``sids``), so its
+    work follows the sessions answered, not the pool's size.  Each slot's
+    scores are bitwise equal to a dedicated per-session matcher (its terms
+    accumulate in its own ascending arrival order), whichever slots are
+    scored with it.
 
     ``open(sid)`` binds a session to a free slot; ``post`` queues
     increments; ``flush`` folds them; ``top_k`` / ``scores_for`` read
@@ -501,14 +524,17 @@ class StreamSessionPool:
         self.last_flush = {"sessions": len(merged), "k_max": k_max, "rows": int(k_valid.sum())}
         return len(merged)
 
-    def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:
-        """``([slots, k] scores, [slots, k] indices)`` at the current ages:
-        one call for every session."""
-        return self._m.top_k_slots(k, self._age)
+    def top_k(self, k: int, sids=None) -> tuple[np.ndarray, np.ndarray]:
+        """``([n, k] scores, [n, k] indices)`` at the current ages of the
+        sessions ``sids``, rows in their order, scoring only their slots;
+        with ``sids`` None, every slot's (``n = slots``, rows by slot)."""
+        slots = None if sids is None else [self._slot[sid] for sid in sids]
+        return self._m.top_k_slots(k, self._age, slots)
 
     def scores_for(self, sid: str) -> np.ndarray:
-        """``[L]`` scores of one session (flushed state)."""
-        return self._m.scores_slots(self._age)[self._slot[sid]]
+        """``[L]`` scores of one session (flushed state), scoring its slot
+        alone."""
+        return self._m.scores_slots(self._age, [self._slot[sid]])[0]
 
     def close(self, sid: str) -> None:
         """Free a session's slot (dropping unflushed posts) and zero its

@@ -224,6 +224,9 @@ def test_session_pool_equals_per_session_matchers_and_jax_pool():
             if sid in pool._slot:
                 want = ref.scores()[0]
                 np.testing.assert_array_equal(pool.scores_for(sid), want, err_msg=sid)
+                one = pool.top_k(2, [sid])          # this session's slot alone
+                np.testing.assert_array_equal(one[0][0], sc[pool._slot[sid]], err_msg=sid)
+                np.testing.assert_array_equal(one[1][0], ix[pool._slot[sid]], err_msg=sid)
                 np.testing.assert_array_equal(ix[pool._slot[sid]],
                                               np.argsort(-want, kind="stable")[:2])
                 assert pool.age(sid) == ref.n
@@ -257,6 +260,61 @@ def test_session_pool_equals_per_session_matchers_and_jax_pool():
         pool.post("nope", *_planes(rng, 1))
     with pytest.raises(RuntimeError):
         pool.open("e")                          # 3 slots, all taken
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_top_k_of_chosen_slots_equals_those_rows_of_the_full_call(sharded):
+    """Scoring only the slots asked for changes no bit: ``top_k_slots``,
+    ``scores_slots`` and ``StreamSessionPool.top_k`` restricted to one slot,
+    to an unsorted subset (a slot at age 0 among them) and to every slot
+    equal those rows of the unrestricted call, scores and indices, at mixed
+    slot ages, with tied library entries, on one device and on a 4-way
+    sharded CPU mesh; and they equal the JAX pool's full top-k rows."""
+    rng = np.random.default_rng(61)
+    fps = [Fingerprint(*_planes(rng, n)) for n in (6, 9, 4, 11, 7)]
+    fps += [fps[1], fps[3]]                     # entries 5 and 6 tie 1 and 3
+    lib, jlib = _libraries(fps)
+    if sharded:
+        from lbaudiodetective_torch.parallel.mesh import make_mesh
+        from lbaudiodetective_torch.parallel.sharded_library import ShardedFingerprintLibrary
+
+        lib = ShardedFingerprintLibrary(lib, make_mesh(8, library_parallelism=4, device="cpu"))
+    pool = StreamSessionPool(lib, slots=6, n_cap=4, device="cpu")
+    jpool = jax_inc.StreamSessionPool(jlib, slots=6, n_cap=4)
+    sids = list("abcdef")
+    for sid in sids:
+        assert pool.open(sid) == jpool.open(sid)
+    streams = {"a": (fps[1].pos, fps[1].neg), "b": _planes(rng, 5), "c": (fps[3].pos, fps[3].neg),
+               "d": _planes(rng, 2), "e": _planes(rng, 3)}       # "f" stays at age 0
+    for part in (slice(0, 4), slice(4, None)):  # two flushes; a and c grow past n_cap=4
+        for sid, (p, q) in streams.items():
+            if p[part].shape[0]:
+                pool.post(sid, p[part], q[part])
+                jpool.post(sid, p[part], q[part])
+        pool.flush()
+        jpool.flush()
+    assert [pool.age(sid) for sid in sids] == [9, 5, 11, 2, 3, 0]
+    m, slot = pool._m, pool._slot
+    full_scores = m.scores_slots(pool._age)
+    for k in (1, 3):
+        full = m.top_k_slots(k, pool._age)
+        jfull = [np.asarray(x) for x in jpool.top_k(k)]
+        np.testing.assert_array_equal(full[0], jfull[0])
+        np.testing.assert_array_equal(full[1], jfull[1])
+        for chosen in (["c"], ["e", "a", "f", "b"], sids):
+            rows = [slot[sid] for sid in chosen]
+            for got in (m.top_k_slots(k, pool._age, rows), pool.top_k(k, chosen)):
+                for g, f, j in zip(got, full, jfull):
+                    assert g.shape == (len(rows), k)
+                    np.testing.assert_array_equal(g, f[rows], err_msg=str(chosen))
+                    np.testing.assert_array_equal(g, j[rows], err_msg=str(chosen))
+            np.testing.assert_array_equal(m.scores_slots(pool._age, rows), full_scores[rows])
+    sc, ix = pool.top_k(3, ["a", "c", "f"])
+    assert ix[0, :2].tolist() == [1, 5] and sc[0, 0] == sc[0, 1] == 1.0     # ties: lower first
+    assert ix[1, :2].tolist() == [3, 6] and sc[1, 0] == sc[1, 1] == 1.0
+    assert not sc[2].any() and ix[2].tolist() == [0, 1, 2]                  # age 0: all zero
+    for sid in sids:
+        np.testing.assert_array_equal(pool.scores_for(sid), full_scores[slot[sid]])
 
 
 def test_state_roundtrip_and_cross_package(tmp_path):

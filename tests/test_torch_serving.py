@@ -186,6 +186,71 @@ def test_concurrent_pooled_posts_fold_in_one_flush(case):
     assert flushes == [4]
 
 
+def test_pooled_answers_equal_per_session_answers(case):
+    """Pooled answers, ranked over just the slots answered, equal the
+    per-session service's (which scores each session alone): posts folded
+    together in one flush, a flush of some of the sessions, and a peek and a
+    close of sessions whose neighbours posted since their last answer."""
+    pooled, _ = services(case, stream_pool=True, stream_flush_window_s=0.2, max_sessions=6,
+                         top_k=3)
+    per, _ = services(case, top_k=3)
+    subs = [fp.to_string().split("+") for fp in case[3]]
+    sp = [pooled.stream_open()["session"] for _ in range(4)]
+    ss = [per.stream_open()["session"] for _ in range(4)]
+
+    def post_together(who, r):
+        bodies = {i: "+".join(subs[i][3 * r:3 * r + 3]).encode() for i in who}
+        out = {}
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, pooled.stream_update(sp[i], bodies[i]))) for i in who]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        for i in who:
+            assert out[i] == per.stream_update(ss[i], bodies[i]), i
+
+    post_together([0, 1, 2, 3], 0)
+    post_together([2, 0], 1)                    # two of the four slots, unsorted
+    post_together([1, 0], 2)
+    assert pooled.stream_peek(sp[3]) == per.stream_peek(ss[3])
+    assert pooled.stream_peek(sp[2]) == per.stream_peek(ss[2])
+    closed = pooled.stream_close(sp[1])
+    assert closed == per.stream_close(ss[1]) and closed["n"] == 6
+    post_together([3, 2, 0], 3)
+    for i in (0, 2, 3):
+        assert pooled.stream_close(sp[i]) == per.stream_close(ss[i]), i
+
+    # A session closed while its post waits in the window: the close folds
+    # and answers it, the post fails as unknown, and the flush still answers
+    # the other session that posted in it.
+    sp = [pooled.stream_open()["session"] for _ in range(2)]
+    ss = [per.stream_open()["session"] for _ in range(2)]
+    bodies = ["+".join(subs[i][:4]).encode() for i in (2, 3)]
+    out = [None, None]
+
+    def post(i):
+        try:
+            out[i] = pooled.stream_update(sp[i], bodies[i])
+        except errors.InvalidArgumentError as e:
+            out[i] = e
+
+    pooled.stream_flush_window_s = 1.0
+    threads = [threading.Thread(target=post, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+        time.sleep(0.1)
+    closed = pooled.stream_close(sp[0])
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    per.stream_update(ss[0], bodies[0])
+    assert closed == per.stream_close(ss[0]) and closed["n"] == 4
+    assert isinstance(out[0], errors.InvalidArgumentError) and "unknown session" in str(out[0])
+    assert out[1] == per.stream_update(ss[1], bodies[1]) and out[1]["n"] == 4
+
+
 def test_session_caps_eviction_and_429s(case):
     lib = case[0]
     port = serving.IdentificationService(lib, NAMES, device="cpu", max_sessions=2,
@@ -348,7 +413,7 @@ def test_pooled_posts_over_http_record_their_spans(case):
     """Inside ``recording()``, 8 sessions posting at once over HTTP, twice:
     every request is one ``serve.request`` root whose spans share its
     request id, the flushes fold every post, each post names the flush that
-    answered it, and the top-k spans count the pool's slots."""
+    answered it, and each top-k span scores just the slots it answers."""
     from lbaudiodetective_torch.utils import profiling
 
     port, _ = services(case, stream_pool=True, stream_flush_window_s=0.2, max_sessions=8)
@@ -415,7 +480,7 @@ def test_pooled_posts_over_http_record_their_spans(case):
     answered = sorted(r for f in by_cause["post"] for r in f.attrs["requests"])
     assert answered == sorted(p.request for p in posts)
     tops = [s for s in rec.spans if s.name == "pool.top_k"]
-    assert all(t.attrs["slots_scored"] == port._pool.slots == 8 for t in tops)
+    assert all(t.attrs["slots_scored"] == t.attrs["slots_used"] for t in tops)
     for t in tops:
         (flush,) = [f for f in flushes.values()
                     if f.parent == t.parent and f.request == t.request]
