@@ -111,7 +111,8 @@ class AudioDetective:
         return self.process_decoded_batch(clips)
 
     def process_decoded_batch(self, clips: list[DecodedAudio]) -> list[Fingerprint]:
-        """All clips in one padded device dispatch: the span
+        """All clips in one padded batch, launched in chunks
+        (``ops.extract.FingerprintExtractor.extract_clips``): the span
         ``detective.batch`` (``clips``) over the extraction's spans and
         ``fingerprint.wrap``, inside ``utils.profiling.recording()``."""
         with profiling.stage("detective.batch", clips=len(clips)):

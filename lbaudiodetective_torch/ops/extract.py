@@ -28,15 +28,26 @@ A config the reference's kernels refuse (window 1024 with a fractional hop)
 raises ``ValueError`` on CUDA, as the reference does on its accelerator; no
 CUDA path runs the plain versions of the kernels.
 
-``extract_fingerprint`` and ``extract_fingerprint_batch`` record the spans
-``extract.pad`` (``clips``, ``samples_valid``, ``samples_padded``),
-``extract.h2d`` (``bytes``), ``extract.launch`` (the kernels' enqueue) and
-``extract.d2h`` (the copy back, which waits for the device) inside
-``utils.profiling.recording()``.
+Host audio reaches the device in chunks of clips
+(:meth:`FingerprintExtractor.extract_clips`): the host pads chunk c + 1
+into a page-locked staging slot while chunk c's copy and kernels run, and
+waits for the device only at the one copy back.  Where the fused rows
+kernel runs, a chunk fills whole waves of its grid (:func:`chunk_bounds`);
+every other rows path, and the CPU, takes the batch in one chunk.
+
+``extract_fingerprint`` and ``extract_fingerprint_batch`` record, a chunk
+each, the spans ``extract.pad`` (``clips``, ``samples_valid``,
+``samples_padded``), ``extract.h2d`` (``bytes``, ``pinned``) and
+``extract.launch`` (the kernels' enqueue), each with ``chunk`` and
+``chunks``, and once a batch ``extract.d2h`` (the copy back, which waits
+for the device) inside ``utils.profiling.recording()``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -44,7 +55,7 @@ import torch
 from torch import nn
 
 from lbaudiodetective_torch.config import FingerprintConfig
-from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device
+from lbaudiodetective_torch.device import DEFAULT_DEVICE, resolve_device, to_device
 from lbaudiodetective_torch.io.decode import DecodedAudio
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
@@ -97,6 +108,70 @@ def _single_step(n_tiles: int) -> bool:
     return n_tiles // tps == 1
 
 
+def _wave_clips(n_tiles: int, device: torch.device) -> int:
+    """Clips of a chunk that fills whole waves of the fused rows kernel on
+    ``device``, 0 off CUDA (one chunk).  The kernel's grid is (tiles,
+    clips) with one CTA an SM (512 threads at up to 128 registers take an
+    SM's register file), so ``n_sm / gcd(tiles, n_sm)`` clips fill whole
+    waves: 33 at 56 tiles on 132 SMs."""
+    if device.type != "cuda":
+        return 0
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return n_sm // math.gcd(n_tiles, n_sm)
+
+
+def chunk_bounds(batch: int, step: int) -> list[tuple[int, int]]:
+    """Row ranges of ``batch`` clips in chunks of ``step`` (at least two)
+    and the rest: one chunk where ``step`` is 0 or the batch holds fewer
+    than two such chunks, and a rest of one clip joins the chunk before it,
+    since a lone clip may take another rows path (:func:`_single_step`).
+    Chunks of whole waves followed by the rest take the waves of one
+    launch."""
+    step = max(step, 2) if step > 0 else batch
+    if batch < 2 * step:
+        return [(0, batch)]
+    bounds = [(a, min(a + step, batch)) for a in range(0, batch, step)]
+    if bounds[-1][1] - bounds[-1][0] == 1:
+        bounds[-2:] = [(bounds[-2][0], batch)]
+    return bounds
+
+
+class _Staging:
+    """Two host slots that chunks are padded into before their copy to the
+    device: page-locked on CUDA, where each copy is queued on the ring's
+    own stream and the event recorded after it guards the slot, which is
+    written again only once that copy has completed.  A slot grows only
+    when a larger chunk arrives."""
+
+    def __init__(self, device: torch.device):
+        self.pinned = device.type == "cuda"
+        self.slots: list[torch.Tensor | None] = [None, None]
+        if self.pinned:
+            self.stream = torch.cuda.Stream(device)
+            self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def slot(self, i: int, rows: int, t_len: int) -> torch.Tensor:
+        """Slot ``i`` as ``[rows, t_len]`` float32, once its last copy has
+        completed; its contents are stale."""
+        if self.pinned:
+            self.copied[i].synchronize()
+        n = rows * t_len
+        if self.slots[i] is None or self.slots[i].numel() < n:
+            self.slots[i] = torch.empty(n, dtype=torch.float32, pin_memory=self.pinned)
+        return self.slots[i][:n].view(rows, t_len)
+
+    def copy(self, i: int, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """Copy slot ``i``'s ``src`` into ``dst``; on CUDA without a host
+        wait, the current stream waiting for the copy on the device."""
+        if not self.pinned:
+            dst.copy_(src)
+            return
+        with torch.cuda.stream(self.stream):
+            dst.copy_(src, non_blocking=True)
+            self.copied[i].record(self.stream)
+        torch.cuda.current_stream(dst.device).wait_event(self.copied[i])
+
+
 def subfingerprints_from_rows(rows: torch.Tensor, config: FingerprintConfig,
                               consts: dict[str, torch.Tensor],
                               rows_are_coeffs: bool = False
@@ -143,6 +218,8 @@ class FingerprintExtractor(nn.Module):
         for name, t in constants_to_tensors(arrays, self.device).items():
             self.register_buffer(name, t, persistent=False)
         self._other_consts: dict[str, dict[str, torch.Tensor]] = {}
+        self._rings: list[_Staging] = []        # idle staging rings
+        self._rings_lock = threading.Lock()
 
     @property
     def consts(self) -> dict[str, torch.Tensor]:
@@ -160,7 +237,9 @@ class FingerprintExtractor(nn.Module):
     def forward(self, audio: torch.Tensor, n_valid_sub: torch.Tensor,
                 n_rows: int, rows_impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
         """audio ``[B, T]`` or ``[T]`` float32, padded so the last window
-        fits; n_valid_sub ``[B]`` or scalar.  ``rows_impl`` is "auto" (the
+        fits; n_valid_sub ``[B]`` or scalar (a host value goes to the
+        device through pinned memory before the kernels are queued, so that
+        no copy waits for them).  ``rows_impl`` is "auto" (the
         extractor's own choice) or one of "fused_v3", "fused_v2", "fused",
         "conv", "xla".  Returns (pos, neg) uint8 ``[..., n_rows /
         rows_per_frame, pairs]``, invalid subfingerprints zeroed."""
@@ -169,6 +248,7 @@ class FingerprintExtractor(nn.Module):
             raise ValueError("n_rows must be a multiple of rows_per_frame")
         impl = self.impl if rows_impl == "auto" else rows_impl
         batched = audio if audio.dim() == 2 else audio[None]
+        n_valid = to_device(torch.as_tensor(n_valid_sub), batched.device).reshape(-1)
         consts = self.consts_for(impl)
         n_sub = n_rows // cfg.rows_per_frame
         k = cfg.num_wavelet_pairs
@@ -199,11 +279,63 @@ class FingerprintExtractor(nn.Module):
                 rows = spectral.band_energies(windows, cfg)
             pos, neg = subfingerprints_from_rows(
                 rows, cfg, consts, rows_are_coeffs=impl in ("fused_v3", "fused_v2"))
-        n_valid = torch.as_tensor(n_valid_sub, device=pos.device).reshape(-1)
         valid = (torch.arange(n_sub, device=pos.device)[None, :]
                  < n_valid[:, None]).to(torch.uint8)[..., None]
         pos, neg = pos * valid, neg * valid
         return (pos, neg) if audio.dim() == 2 else (pos[0], neg[0])
+
+    @contextlib.contextmanager
+    def _staging(self):
+        """A staging ring no other caller holds while this one does."""
+        with self._rings_lock:
+            ring = self._rings.pop() if self._rings else _Staging(self.device)
+        try:
+            yield ring
+        finally:
+            with self._rings_lock:
+                self._rings.append(ring)
+
+    def extract_clips(self, samples: list[np.ndarray], n_valid_sub: np.ndarray,
+                      n_rows: int, t_pad: int) -> tuple[np.ndarray, np.ndarray]:
+        """Host clips -> host (pos, neg) ``[B, n_rows / rows_per_frame,
+        pairs]``, B = ``len(n_valid_sub)``: clip i's ``samples`` (cut to
+        ``t_pad``) zero-padded to ``t_pad``, rows past ``samples`` all zero.
+        The batch goes in chunks (:func:`chunk_bounds`, whole waves where the
+        fused rows kernel runs, else one chunk): each chunk is padded into a
+        staging slot, copied and launched, and the host waits for the device
+        only at the one copy back of the whole batch."""
+        cfg = self.config
+        b_pad, n_sub = len(n_valid_sub), n_rows // cfg.rows_per_frame
+        waves = self.impl == "fused_v3" and kernel_eligible(cfg)
+        bounds = chunk_bounds(b_pad, _wave_clips(n_sub, self.device) if waves else 0)
+        n_valid = to_device(np.asarray(n_valid_sub, np.int32), self.device)
+        x = torch.empty((b_pad, t_pad), dtype=torch.float32, device=self.device)
+        out = torch.empty((2, b_pad, n_sub, cfg.num_wavelet_pairs), dtype=torch.uint8,
+                          device=self.device)
+        with self._staging() as ring:
+            if ring.pinned:         # queued work may still read x's memory
+                ring.stream.wait_stream(torch.cuda.current_stream(self.device))
+            for c, (a, b) in enumerate(bounds):
+                at = {"chunk": c, "chunks": len(bounds)}
+                with profiling.stage("extract.pad", clips=max(0, min(b, len(samples)) - a),
+                                     samples_padded=(b - a) * t_pad, **at) as span:
+                    slot = ring.slot(c % 2, b - a, t_pad)
+                    rows, valid = slot.numpy(), 0
+                    for i, row in enumerate(rows, a):
+                        clip = samples[i][:t_pad] if i < len(samples) else ()
+                        row[:len(clip)] = clip
+                        row[len(clip):] = 0      # the slot holds an earlier chunk
+                        valid += len(clip)
+                    span.set(samples_valid=valid)
+                with profiling.stage("extract.h2d", bytes=slot.nbytes, pinned=ring.pinned, **at):
+                    ring.copy(c % 2, x[a:b], slot)
+                with profiling.stage("extract.launch", **at):
+                    pos, neg = self(x[a:b], n_valid[a:b], n_rows)
+                    out[0, a:b] = pos
+                    out[1, a:b] = neg
+        with profiling.stage("extract.d2h"):
+            planes = out.cpu().numpy()
+        return planes[0], planes[1]
 
 
 @lru_cache(maxsize=8)
@@ -259,13 +391,9 @@ def extract_fingerprint(audio: DecodedAudio, config: FingerprintConfig | None = 
         return (np.zeros((0, pairs), np.uint8), np.zeros((0, pairs), np.uint8), 0)
     n_rows = rows_for_subfingerprints(config, bucket)
     t_pad = required_padded_length(config, n_rows)
-    with profiling.stage("extract.pad", clips=1, samples_padded=t_pad) as span:
-        x = np.zeros(t_pad, np.float32)
-        t = min(audio.samples.shape[0], t_pad)
-        x[:t] = audio.samples[:t]
-        span.set(samples_valid=t)
-    pos, neg = _extract_host(x, torch.tensor(n_sub), config, n_rows, device)
-    return pos[:n_sub], neg[:n_sub], n_sub
+    pos, neg = get_extractor(config, str(device)).extract_clips(
+        [audio.samples], np.array([n_sub], np.int32), n_rows, t_pad)
+    return pos[0, :n_sub], neg[0, :n_sub], n_sub
 
 
 def extract_fingerprint_batch(clips: list[DecodedAudio],
@@ -273,10 +401,11 @@ def extract_fingerprint_batch(clips: list[DecodedAudio],
                               pad_batch_to: int = 0, n_sub_cap: int = 0,
                               device: torch.device | str = DEFAULT_DEVICE
                               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """All clips in one padded dispatch on ``device``.  Returns (pos, neg,
-    n_sub) with shapes ``[B, S_max, pairs]`` / ``[B]``; invalid
-    subfingerprints are zeroed.  ``pad_batch_to``/``n_sub_cap`` pin the
-    shapes as in the reference."""
+    """All clips in one padded batch on ``device``, launched in chunks
+    (:meth:`FingerprintExtractor.extract_clips`).  Returns (pos, neg, n_sub)
+    with shapes ``[B, S_max, pairs]`` / ``[B]``; invalid subfingerprints
+    are zeroed.  ``pad_batch_to``/``n_sub_cap`` pin the shapes as in the
+    reference."""
     config = config or FingerprintConfig()
     device = resolve_device(device, "extract_fingerprint_batch")
     n_subs = np.array([config.num_subfingerprints(c.file_frames, c.proc_frames)
@@ -294,27 +423,8 @@ def extract_fingerprint_batch(clips: list[DecodedAudio],
                 np.zeros((b_out, 0, pairs), np.uint8), n_subs)
     n_rows = rows_for_subfingerprints(config, s_max)
     t_pad = required_padded_length(config, n_rows)
-    with profiling.stage("extract.pad", clips=b_out, samples_padded=b_pad * t_pad) as span:
-        batch = np.zeros((b_pad, t_pad), dtype=np.float32)
-        valid = 0
-        for i, c in enumerate(clips):
-            t = min(c.samples.shape[0], t_pad)
-            batch[i, :t] = c.samples[:t]
-            valid += t
-        span.set(samples_valid=valid)
     n_subs_pad = np.zeros(b_pad, np.int32)
     n_subs_pad[:b_out] = n_subs
-    pos, neg = _extract_host(batch, torch.from_numpy(n_subs_pad), config, n_rows, device)
+    pos, neg = get_extractor(config, str(device)).extract_clips(
+        [c.samples for c in clips], n_subs_pad, n_rows, t_pad)
     return pos[:b_out], neg[:b_out], n_subs
-
-
-def _extract_host(audio: np.ndarray, n_valid_sub: torch.Tensor, config: FingerprintConfig,
-                  n_rows: int, device: torch.device) -> tuple[np.ndarray, np.ndarray]:
-    """:func:`extract_fingerprint_padded` on padded host audio: the copy to
-    ``device``, the launch and the copy back, a span each."""
-    with profiling.stage("extract.h2d", bytes=audio.nbytes):
-        x = torch.from_numpy(audio).to(device)
-    with profiling.stage("extract.launch"):
-        pos, neg = extract_fingerprint_padded(x, n_valid_sub, config, n_rows)
-    with profiling.stage("extract.d2h"):
-        return pos.cpu().numpy(), neg.cpu().numpy()

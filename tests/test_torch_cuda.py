@@ -265,6 +265,63 @@ def test_cuda_extraction_runs_kernels_and_equals_cpu(cuda_device):
                                cpu.match_against_library(refs[0], lib), rtol=0, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def enroll_clips():
+    """256 decoded 10 s clips: the [256, 7168 rows] batch of enrollment."""
+    from lbaudiodetective_torch.io.decode import DecodedAudio
+
+    cfg = FingerprintConfig()
+    n = int(10 * cfg.processing_sample_rate)
+    return [DecodedAudio(x, cfg.processing_sample_rate, int(10 * cfg.file_sample_rate),
+                         cfg.file_sample_rate) for x in brown_noise(81, 256, n)]
+
+
+def test_chunked_extraction_equals_one_launch(cuda_device, enroll_clips, monkeypatch):
+    """At [256, 7168 rows] the batch goes in whole-wave chunks and gives the
+    bits of one launch of the rows kernel over the whole batch; the chunks
+    were padded into page-locked staging."""
+    from lbaudiodetective_torch.ops import extract
+
+    cfg = FingerprintConfig()
+    step = extract._wave_clips(56, cuda_device)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert step * 56 % n_sm == 0 and len(extract.chunk_bounds(256, step)) > 1
+    kernels.reset_launch_counts()
+    chunked = extract.extract_fingerprint_batch(enroll_clips, cfg, device=cuda_device)
+    assert kernels.launch_counts()["fused_band_rows"] == len(extract.chunk_bounds(256, step))
+    monkeypatch.setattr(extract, "_wave_clips", lambda n_tiles, device: 0)
+    kernels.reset_launch_counts()
+    single = extract.extract_fingerprint_batch(enroll_clips, cfg, device=cuda_device)
+    assert kernels.launch_counts()["fused_band_rows"] == 1
+    assert chunked[0].shape == (256, 56, 100) and chunked[0].any()
+    for a, b in zip(chunked, single):
+        np.testing.assert_array_equal(a, b)
+    rings = extract.get_extractor(cfg, str(cuda_device))._rings
+    slots = [t for ring in rings for t in ring.slots if t is not None]
+    assert slots and all(t.is_pinned() for t in slots)
+
+
+def test_chunk_launch_does_not_wait_for_the_kernel(cuda_device, enroll_clips):
+    """Inside ``recording()`` the first chunk's ``extract.launch`` closes
+    before the batch's ``extract.d2h`` opens, within 5 ms: queuing a chunk
+    waits for no kernel; the copy back waits for them all."""
+    from lbaudiodetective_torch.ops.extract import extract_fingerprint_batch
+    from lbaudiodetective_torch.utils import profiling
+
+    cfg = FingerprintConfig()
+    extract_fingerprint_batch(enroll_clips, cfg, device=cuda_device)     # builds the kernels
+    torch.cuda.synchronize()
+    with profiling.recording() as rec:
+        extract_fingerprint_batch(enroll_clips, cfg, device=cuda_device)
+    launch = next(s for s in rec.spans if s.name == "extract.launch" and s.attrs["chunk"] == 0)
+    d2h = next(s for s in rec.spans if s.name == "extract.d2h")
+    assert launch.attrs["chunks"] > 1
+    assert launch.end_ns <= d2h.start_ns
+    assert launch.end_ns - launch.start_ns < 5_000_000
+    h2d = [s.attrs for s in rec.spans if s.name == "extract.h2d"]
+    assert len(h2d) == launch.attrs["chunks"] and all(a["pinned"] for a in h2d)
+
+
 def test_unported_config_raises_on_cuda(cuda_device):
     """No config the reference runs on its accelerator is refused any more:
     the fractional hop extracts through the band-rows kernel.  The one the

@@ -151,7 +151,8 @@ def test_cuda_detective_raises_without_gpu():
 def test_process_decoded_batch_records_its_span_tree():
     """Inside ``recording()`` a batch is a ``detective.batch`` root over the
     padding, the copies, the launch and the wrapping, with the counts of
-    each; the fingerprints are those of an unrecorded call."""
+    each (the CPU takes a batch in one chunk, copied from pageable memory);
+    the fingerprints are those of an unrecorded call."""
     from lbaudiodetective_torch.io.decode import DecodedAudio
     from lbaudiodetective_torch.ops.extract import (
         bucket_subfingerprints, required_padded_length, rows_for_subfingerprints)
@@ -178,7 +179,41 @@ def test_process_decoded_batch_records_its_span_tree():
     n_sub = max(cfg.num_subfingerprints(c.file_frames, c.proc_frames) for c in clips)
     n_rows = rows_for_subfingerprints(cfg, bucket_subfingerprints(n_sub))
     t_pad = required_padded_length(cfg, n_rows)
+    one = {"chunk": 0, "chunks": 1}
     assert spans["extract.pad"].attrs == {"clips": 3, "samples_padded": 3 * t_pad,
-                                          "samples_valid": sum(min(n, t_pad) for n in lengths)}
-    assert spans["extract.h2d"].attrs == {"bytes": 3 * t_pad * 4}
+                                          "samples_valid": sum(min(n, t_pad) for n in lengths),
+                                          **one}
+    assert spans["extract.h2d"].attrs == {"bytes": 3 * t_pad * 4, "pinned": False, **one}
+    assert spans["extract.launch"].attrs == one
     assert spans["fingerprint.wrap"].attrs == {"clips": 3}
+
+
+def test_chunked_batch_records_a_span_a_chunk(monkeypatch):
+    """A batch in chunks records ``extract.pad``, ``extract.h2d`` and
+    ``extract.launch`` a chunk, each with its ``chunk`` and the count
+    ``chunks`` (``pinned`` False on the CPU), and one ``extract.d2h``; the
+    chunks' counts add up to the batch's."""
+    from lbaudiodetective_torch.io.decode import DecodedAudio
+    from lbaudiodetective_torch.ops import extract
+    from lbaudiodetective_torch.utils import profiling
+
+    monkeypatch.setattr(extract, "_wave_clips", lambda n_tiles, device: 2)
+    det = AudioDetective(device="cpu")
+    cfg = det.config
+    sig = brown_noise(63, 5, 2 * 5512).astype(np.float32)
+    clips = [DecodedAudio(x[:n], cfg.processing_sample_rate, n * 8, 44100.0)
+             for x, n in zip(sig, (2 * 5512, 5512, 2 * 5512, 3 * 2756, 5512))]
+    with profiling.recording() as rec:
+        det.process_decoded_batch(clips)
+    names = [s.name for s in rec.spans]
+    chunk = ["extract.pad", "extract.h2d", "extract.launch"]
+    assert names == chunk * 2 + ["extract.d2h", "fingerprint.wrap", "detective.batch"]
+    per_chunk = rec.spans[:6]
+    assert [(s.attrs["chunk"], s.attrs["chunks"]) for s in per_chunk] == [(0, 2)] * 3 + [(1, 2)] * 3
+    assert all(s.attrs["pinned"] is False for s in per_chunk if s.name == "extract.h2d")
+    pads = [s for s in per_chunk if s.name == "extract.pad"]
+    assert [s.attrs["clips"] for s in pads] == [2, 3]
+    assert sum(s.attrs["samples_valid"] for s in pads) == sum(c.samples.shape[0] for c in clips)
+    h2d = [s.attrs["bytes"] for s in per_chunk if s.name == "extract.h2d"]
+    assert h2d == [p.attrs["samples_padded"] * 4 for p in pads]
+    assert "chunk" not in rec.spans[6].attrs

@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 
 from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.io.decode import DecodedAudio  # noqa: E402
+from lbaudiodetective_torch.ops import extract  # noqa: E402
 from lbaudiodetective_torch.ops.extract import (  # noqa: E402
     extract_fingerprint, extract_fingerprint_batch, rows_impl)
 from lbaudiodetective_torch.ops.match import match_fingerprints  # noqa: E402
@@ -59,6 +60,124 @@ def test_batch_equals_single_and_padding_is_zero():
     np.testing.assert_array_equal(pn, np.minimum(n_subs, 9))
     for i in range(3):
         np.testing.assert_array_equal(ppos[i, :pn[i]], bpos[i, :pn[i]])
+
+
+@pytest.fixture(scope="module")
+def many_clips():
+    """256 clips of 1.0-2.0 s (buckets of 8 and 16 subfingerprints)."""
+    cfg = CONFIGS["parity"]
+    return [synth_clip(200 + i, 1.0 + 0.25 * (i % 5), cfg) for i in range(256)]
+
+
+def _chunks_of(monkeypatch, step: int) -> None:
+    """Chunks of ``step`` clips on every device (0: one chunk)."""
+    monkeypatch.setattr(extract, "_wave_clips", lambda n_tiles, device: step)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 34, 67, 256])
+def test_chunked_batch_equals_single_dispatch(batch, many_clips, monkeypatch):
+    """A batch launched in chunks of 3 clips (the last taking the rest)
+    gives the bits of the batch in one chunk."""
+    from lbaudiodetective_torch.utils import profiling
+
+    cfg, clips = CONFIGS["parity"], many_clips[:batch]
+    _chunks_of(monkeypatch, 0)
+    single = extract_fingerprint_batch(clips, cfg, device="cpu")
+    _chunks_of(monkeypatch, 3)
+    with profiling.recording() as rec:
+        chunked = extract_fingerprint_batch(clips, cfg, device="cpu")
+    launches = [s.attrs for s in rec.spans if s.name == "extract.launch"]
+    assert len(launches) == len(extract.chunk_bounds(batch, 3)) == max(1, batch // 3)
+    for a, b in zip(single, chunked):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_chunked_batch_pins_shapes_and_zeroes_padding_rows(many_clips, monkeypatch):
+    """``pad_batch_to`` and ``n_sub_cap`` give the same bits in chunks, and
+    the padding rows stay silent after the staging slots held clips."""
+    from lbaudiodetective_torch.ops.extract import (
+        get_extractor, required_padded_length, rows_for_subfingerprints)
+
+    cfg, clips = CONFIGS["parity"], many_clips[:34]
+    _chunks_of(monkeypatch, 0)
+    single = extract_fingerprint_batch(clips, cfg, pad_batch_to=40, n_sub_cap=9, device="cpu")
+    _chunks_of(monkeypatch, 3)
+    chunked = extract_fingerprint_batch(clips, cfg, pad_batch_to=40, n_sub_cap=9, device="cpu")
+    for a, b in zip(single, chunked):
+        np.testing.assert_array_equal(a, b)
+    assert single[0].shape == (34, 16, 100) and single[2].max() == 9
+    # The padding rows, read in full: every subfingerprint counted valid.
+    n_rows = rows_for_subfingerprints(cfg, 16)
+    n_valid = np.full(40, 16, np.int32)
+    pos, neg = get_extractor(cfg, "cpu").extract_clips(
+        [c.samples for c in clips], n_valid, n_rows, required_padded_length(cfg, n_rows))
+    assert pos.shape == (40, 16, 100) and pos[:34].any()
+    assert not pos[34:].any() and not neg[34:].any()
+
+
+def test_staging_reuse_leaks_no_stale_samples(monkeypatch):
+    """Short clips right after long ones, through the same staging slots,
+    give the short clips' own fingerprints: the windows that run past a
+    clip's samples read zeros, not the samples an earlier chunk left."""
+    from lbaudiodetective_torch.ops.extract import (
+        FingerprintExtractor, bucket_subfingerprints, required_padded_length,
+        rows_for_subfingerprints)
+
+    cfg = CONFIGS["parity"]
+    rate, file_rate = cfg.processing_sample_rate, cfg.file_sample_rate
+    _chunks_of(monkeypatch, 3)
+    extract_fingerprint_batch([synth_clip(400 + i, 6.0, cfg) for i in range(8)], cfg,
+                              device="cpu")
+    # One second of samples, counted as 2.5 s of file frames.
+    short = [DecodedAudio(synth_clip(420 + i, 1.0, cfg).samples, rate, int(2.5 * file_rate),
+                          file_rate) for i in range(8)]
+    pos, neg, n_subs = extract_fingerprint_batch(short, cfg, device="cpu")
+    n_rows = rows_for_subfingerprints(cfg, bucket_subfingerprints(int(n_subs.max())))
+    x = np.zeros((8, required_padded_length(cfg, n_rows)), np.float32)
+    for row, c in zip(x, short):
+        row[:len(c.samples)] = c.samples
+    assert required_padded_length(cfg, n_rows) > len(short[0].samples)
+    rpos, rneg = FingerprintExtractor(cfg, "cpu")(torch.from_numpy(x), torch.from_numpy(n_subs),
+                                                  n_rows)
+    np.testing.assert_array_equal(pos, rpos.numpy())
+    np.testing.assert_array_equal(neg, rneg.numpy())
+
+
+def test_threads_extracting_at_once_get_their_own_batches(many_clips, monkeypatch):
+    """Threads extracting different batches at once through the shared
+    extractor, switching often, each get their own batch's fingerprints."""
+    import sys
+    import threading
+
+    cfg = CONFIGS["parity"]
+    _chunks_of(monkeypatch, 2)
+    batches = [many_clips[:20], many_clips[20:34],
+               [synth_clip(500 + i, 3.0, cfg) for i in range(12)], many_clips[34:44]]
+    expected = [extract_fingerprint_batch(b, cfg, device="cpu") for b in batches]
+    got: list[list] = [[] for _ in batches]
+    start = threading.Barrier(len(batches))
+
+    def run(k):
+        start.wait()
+        for _ in range(4):
+            got[k].append(extract_fingerprint_batch(batches[k], cfg, device="cpu"))
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(len(batches))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    for k in range(len(batches)):
+        assert len(got[k]) == 4
+        for result in got[k]:
+            for a, b in zip(expected[k], result):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_silence_extracts_all_zero_and_scores_zero():
