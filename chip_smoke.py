@@ -30,7 +30,8 @@ Phases (each failed check raises, and the script exits non-zero):
    clips in parity mode, a written WAV, a compare of two written WAVs, and
    one query against a 16,384-entry library (the packed match kernel).
    Scores on a 256-entry sub-library equal the CPU path's within 1e-6; the
-   three kernels' launch counts over this phase are > 0.
+   rows and match kernels' launch counts over this phase are > 0 (the rows
+   kernel selects in place).
 6. Library path on a 1,048,576-entry packed library (BASELINE config 5's
    1M tracks; 31-80 subfingerprints an entry, built on the card from a
    seed, with phase 5's fingerprints and near-duplicates planted).  First
@@ -51,8 +52,8 @@ Phases (each failed check raises, and the script exits non-zero):
    3xTF32 stage 2) against its plain version evaluated in float64 at batch
    4 and 7,168 rows: rows mode at the four fractional-hop configs (kernel
    5), coefficients mode at pitch_step_count=16, rows_per_frame=256 and
-   subfingerprint_length=300 (kernel 2 at other geometries), and the v2
-   wrapper at hop 8 with and without fuse_haar (kernel 4); within rtol
+   subfingerprint_length=300 (kernel 2 at other geometries), and rows and
+   coefficients at hop 8 (kernel 4 with and without fuse_haar); within rtol
    5e-4, atol 3e-6 * max (the largest error printed as a share of its bar,
    and the float32 plain version's own share beside it), two runs
    bit-identical, a NaN and a +inf sample zeroing only their windows,
@@ -61,12 +62,12 @@ Phases (each failed check raises, and the script exits non-zero):
    beside the plain version and the 3xTF32 bound, and at [256, 7168 rows],
    the main path's launch shape, where every clip is held against the
    plain version in float64 in slices of 16.  Then, with the launch counts
-   reset, ``AudioDetective(integer_hop=False)`` on 256 ten-second clips,
-   the ``rows_impl="fused_v2"`` route, and the C-API layer on the card
+   reset, ``AudioDetective(integer_hop=False)`` on 256 ten-second clips
+   and the C-API layer on the card
    (``LBAudioDetectiveNew(device="cuda")``, the geometry setters,
    ``ProcessAudioURL``/``CompareAudioURLs`` on written WAVs), their bits
    held to the NumPy oracle, their subfingerprint counts and scores to the
-   CPU port; each band-rows wrapper's launch count over this part is > 0.
+   CPU port; the band-rows kernel's launch count over this part is > 0.
 8. Streaming, BASELINE config 4: ``StreamingExtractor(batch=256,
    device="cuda")`` fed 10 s a stream on the aligned path (chunk 1024,
    bit-equal to offline extraction on the card), the conv path (chunk 512)
@@ -100,8 +101,8 @@ Phases (each failed check raises, and the script exits non-zero):
    launch a tick) and ``"incremental"`` (groups of 32): equal winners and
    bit-equal scores after every chunk, every stream naming its planted
    track; stream-seconds per second of each and its peak device memory.
-   The select, rows and match kernels' launch counts over phases 9-10
-   (requests and feeds, not the offline references) are > 0.
+   The rows and match kernels' launch counts over phases 9-10 (requests
+   and feeds, not the offline references) are > 0.
 11. ``maa_compare_audio_files`` on two written 44.1 kHz WAVs (a
    window-aligned crop: >= 90 % of windows match, equal to the CPU port),
    and ``match_long_padded`` over a one-hour fp1 (19,398 subfingerprints,
@@ -923,17 +924,15 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
     from lbaudiodetective_torch.ops.kernels import band_rows
 
     print("[7a] band-rows kernel vs plain", flush=True)
-    cases = [(f"rows {name}", FingerprintConfig(**kw), band_rows.fused_band_rows, {}, False)
-             for name, kw in FRACTIONAL.items()]
-    cases += [(f"v3 coefficients {name}", FingerprintConfig(**kw), band_rows.fused_band_rows_v3,
-               {"fuse_haar": True}, True) for name, kw in GEOMETRIES.items()]
-    cases += [(f"v2 hop 8 fuse_haar={fh}", FingerprintConfig(), band_rows.fused_band_rows_v2,
-               {"fuse_haar": fh}, fh) for fh in (False, True)]
+    cases = [(f"rows {name}", FingerprintConfig(**kw), False) for name, kw in FRACTIONAL.items()]
+    cases += [(f"coefficients {name}", FingerprintConfig(**kw), True)
+              for name, kw in GEOMETRIES.items()]
+    cases += [(f"hop 8 coeffs={c}", FingerprintConfig(), c) for c in (False, True)]
     err = {}
-    for label, cfg, fn, kw, coeffs in cases:
+    for label, cfg, coeffs in cases:
         audio = torch.from_numpy(brown_noise(
             rng, batch, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
-        got = fn(audio, cfg, BAND_ROWS_N, **kw)
+        got = band_rows.band_rows(audio, cfg, BAND_ROWS_N, coeffs)
         # Held to the plain version in float64; the float32 evaluation's own
         # distance from it is printed beside.
         exp = band_rows.band_rows_plain(audio.double(), cfg, BAND_ROWS_N, coeffs)
@@ -943,9 +942,9 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
                   f"(max abs err {e:.3e}, max {scale:.3e}, largest error "
                   f"{bar_share(got.double(), exp):.3f} of its bar; the float32 plain version "
                   f"is {bar_share(exp32, exp):.3f} of the bar from float64)")
-        check(torch.equal(got, fn(audio, cfg, BAND_ROWS_N, **kw)),
+        check(torch.equal(got, band_rows.band_rows(audio, cfg, BAND_ROWS_N, coeffs)),
               f"{label}: two runs bit-identical")
-        err[fn.__name__] = max(err.get(fn.__name__, 0.0), e)
+        err[coeffs] = max(err.get(coeffs, 0.0), e)
         if label != "rows oracle_mode":
             continue
         # NaN at the first sample of clip 0's second sub-tile (the sample the
@@ -954,7 +953,7 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
         bad = audio.clone()
         bad[0, int(cfg.row_starts(BAND_ROWS_N)[128])] = float("nan")
         bad[1, 0] = float("inf")
-        got_bad = fn(bad, cfg, BAND_ROWS_N, **kw)
+        got_bad = band_rows.band_rows(bad, cfg, BAND_ROWS_N, coeffs)
         ok, e, _ = within_rows_tol(got_bad.double(), band_rows.band_rows_plain(
             bad.double(), cfg, BAND_ROWS_N, coeffs))
         check(ok and bool(got_bad.isfinite().all()),
@@ -963,44 +962,46 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
     oracle_agreement(dev, rng, FingerprintConfig(integer_hop=False), "integer_hop=False")
     oracle_agreement(dev, rng, FingerprintConfig(pitch_step_count=16), "pitch_step_count=16")
 
+    # One record a TPU kernel that csrc/band_rows.cu replaces, each under the
+    # launch count of the one wrapper.
     records = {}
-    for fn, cfg, kw, coeffs, replaces in (
-            (band_rows.fused_band_rows, FingerprintConfig(integer_hop=False), {}, False,
+    for label, cfg, coeffs, replaces in (
+            ("rows", FingerprintConfig(integer_hop=False), False,
              "lbaudiodetective_tpu/ops/pallas/fused_rows.py:148"),
-            (band_rows.fused_band_rows_v2, FingerprintConfig(), {"fuse_haar": True}, True,
+            ("coefficients hop 8", FingerprintConfig(), True,
              "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:196"),
-            (band_rows.fused_band_rows_v3, FingerprintConfig(pitch_step_count=16),
-             {"fuse_haar": True}, True, "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:678")):
+            ("coefficients pitch 16", FingerprintConfig(pitch_step_count=16), True,
+             "lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:678")):
         audio = torch.from_numpy(brown_noise(
             rng, batch, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
-        ms = cuda_ms(lambda: fn(audio, cfg, BAND_ROWS_N, **kw))
+        ms = cuda_ms(lambda: band_rows.band_rows(audio, cfg, BAND_ROWS_N, coeffs))
         plain_ms = cuda_ms(lambda: band_rows.band_rows_plain(audio, cfg, BAND_ROWS_N, coeffs),
                            iters=5)
-        name = f"band_rows.{fn.__name__}"
+        name = f"band_rows ({label})"
         b, serial_ms = band_rows_bound(cfg, audio, BAND_ROWS_N, coeffs)
         print(f"  {name} [{batch}, {BAND_ROWS_N} rows] ({'coefficients' if coeffs else 'rows'}, "
               f"hop {cfg.hop_in_processing_samples:.4f}, {cfg.pitch_step_count} bands): kernel "
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
               f"({b['bound_by']}; {serial_ms:.3f} ms if the pipes do not overlap)", flush=True)
-        records[name] = {"name": name, "route": "cuda",
+        records[name] = {"name": "band_rows", "mode": label, "route": "cuda",
                          "source": "lbaudiodetective_torch/csrc/band_rows.cu",
-                         "replaces": replaces, "max_abs_err": err[fn.__name__],
+                         "replaces": replaces, "max_abs_err": err[coeffs],
                          "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
     cfg = FingerprintConfig(integer_hop=False)
     main_audio = torch.from_numpy(brown_noise(
         rng, N_CLIPS, required_padded_length(cfg, BAND_ROWS_N))).to(dev)
-    main_ms = cuda_ms(lambda: band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N), iters=5)
+    main_ms = cuda_ms(lambda: band_rows.band_rows(main_audio, cfg, BAND_ROWS_N), iters=5)
     main_bound, main_serial_ms = band_rows_bound(cfg, main_audio, BAND_ROWS_N, False)
-    records["band_rows.fused_band_rows"].update(
+    records["band_rows (rows)"].update(
         main_shape_ms=main_ms, main_shape_bound_ms=main_bound["bound_ms"],
         main_shape_bound_serial_ms=main_serial_ms)
-    print(f"  band_rows.fused_band_rows [{N_CLIPS}, {BAND_ROWS_N} rows] (fractional hop): "
+    print(f"  band_rows [{N_CLIPS}, {BAND_ROWS_N} rows] (fractional hop): "
           f"kernel {main_ms:.3f} ms, bound {main_bound['bound_ms']:.3f} ms "
           f"({main_bound['bound_by']}; {main_serial_ms:.3f} ms if the pipes do not overlap) "
           f"({smi})", flush=True)
     # The main path's launch shape, every clip against the plain version in
     # float64 (in slices: the plain gather holds ~120 MB of windows a clip).
-    got = band_rows.fused_band_rows(main_audio, cfg, BAND_ROWS_N)
+    got = band_rows.band_rows(main_audio, cfg, BAND_ROWS_N)
     worst, share, failed = 0.0, 0.0, []
     for i in range(0, N_CLIPS, MAIN_SLICE):
         exp = band_rows.band_rows_plain(main_audio[i:i + MAIN_SLICE].double(), cfg, BAND_ROWS_N)
@@ -1013,15 +1014,15 @@ def phase_band_rows(dev, rng, smi: str, batch: int = 4) -> dict:
                       f"atol 3e-6*max of its slice of the plain version in float64 (max abs "
                       f"err {worst:.3e}, largest error {share:.3f} of its bar; slices failing "
                       f"at clips {failed})")
-    rec = records["band_rows.fused_band_rows"]
+    rec = records["band_rows (rows)"]
     rec["max_abs_err"] = max(rec["max_abs_err"], worst)
     return records
 
 
 def phase_every_config(dev, rng) -> dict:
     """The paths that run the band-rows kernel: the fractional-hop batch
-    through AudioDetective, the reference's rows_impl="fused_v2" route, and
-    the C-API layer with the setters that change the frame geometry."""
+    through AudioDetective and the C-API layer with the setters that change
+    the frame geometry."""
     import numpy as np
     import torch
 
@@ -1031,10 +1032,8 @@ def phase_every_config(dev, rng) -> dict:
     from lbaudiodetective_torch import compat
     from lbaudiodetective_torch.models.detective import AudioDetective
     from lbaudiodetective_torch.oracle.pipeline import oracle_fingerprint
-    from lbaudiodetective_torch.ops.extract import (
-        extract_fingerprint_padded, required_padded_length)
 
-    print("[7b] every config: fractional-hop batch, fused_v2 route, compat", flush=True)
+    print("[7b] every config: fractional-hop batch, compat", flush=True)
     out = {}
     cfg = FingerprintConfig(integer_hop=False)
     det = AudioDetective(cfg, device=dev)
@@ -1060,15 +1059,6 @@ def phase_every_config(dev, rng) -> dict:
           f"{CLIP_SECONDS:g} s): {out['fractional_batch_s'] * 1e3:.1f} ms warm "
           f"({out['fractional_clips_per_s']:.1f} clips/s), first call "
           f"{out['fractional_first_batch_s'] * 1e3:.1f} ms", flush=True)
-
-    parity = FingerprintConfig()
-    n_rows = 8 * parity.rows_per_frame
-    audio = torch.from_numpy(brown_noise(rng, 8, required_padded_length(parity, n_rows))).to(dev)
-    n_valid = torch.full((8,), 8, dtype=torch.int32, device=dev)
-    v2 = extract_fingerprint_padded(audio, n_valid, parity, n_rows, rows_impl="fused_v2")
-    v3 = extract_fingerprint_padded(audio, n_valid, parity, n_rows)
-    agree = float(sum((a == b).float().mean() for a, b in zip(v2, v3))) / 2
-    check(agree >= 0.999, f"rows_impl='fused_v2' vs the default route: {agree:.5f} of bits")
 
     with tempfile.TemporaryDirectory() as tmp:
         a, b = f"{tmp}/a.wav", f"{tmp}/b.wav"
@@ -2011,7 +2001,7 @@ def main() -> int:
     kernels.reset_launch_counts()
     main_out, fps, library, clips = phase_main_path(dev, rng)
     counts = kernels.launch_counts()
-    for name in (*(r["name"] for r in records), "match_one_vs_many_fused"):
+    for name in ("fused_band_rows", "match_one_vs_many_fused"):
         check(counts[name] > 0, f"main path launched {name} {counts[name]} times")
     for r in records:
         r["launches"] = counts[r["name"]]
@@ -2037,9 +2027,10 @@ def main() -> int:
     kernels.reset_launch_counts()
     main_out["every_config"] = phase_every_config(dev, rng)
     counts = kernels.launch_counts()
-    for name in band:
-        check(counts[name] > 0, f"every-config path launched {name} {counts[name]} times")
-        band[name]["launches"] = counts[name]
+    check(counts["band_rows"] > 0, f"every-config path launched band_rows "
+                                   f"{counts['band_rows']} times")
+    for r in band.values():
+        r["launches"] = counts["band_rows"]
     main_out["streaming"], counts = phase_streaming(dev, rng, smi)
     for name in ("select_sign_classes", "fused_band_rows"):
         check(counts[name] > 0, f"streaming launched {name} {counts[name]} times")
@@ -2053,7 +2044,7 @@ def main() -> int:
                                                 smi)
     main_out["stream_identify"], more, runs = phase_stream_identify(dev, svc_lib, clips, smi)
     counts.update(more)
-    for name in ("select_sign_classes", "fused_band_rows", "match_one_vs_many_fused"):
+    for name in ("fused_band_rows", "match_one_vs_many_fused"):
         check(counts[name] > 0, f"service + streaming identifier launched {name} "
                                 f"{counts[name]} times")
     for r in records:

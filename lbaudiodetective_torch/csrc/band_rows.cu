@@ -9,9 +9,9 @@
 // Replaces three TPU kernels of lbaudiodetective_tpu/ops/pallas/:
 //  - fused_rows.py :: fused_band_rows (_rows_kernel): band rows at
 //    fractional window starts, no Haar;
-//  - fused_rows_v2.py :: fused_band_rows_v2 (_rows_kernel_v2): rows, or with
-//    fuse_haar the coefficients, at an integer hop;
-//  - fused_rows_v2.py :: fused_band_rows_v3 with fuse_haar at the frame
+//  - fused_rows_v2.py :: _rows_kernel_v2: rows, or with fuse_haar the
+//    coefficients, at an integer hop;
+//  - fused_rows_v2.py :: _rows_kernel_v3 with fuse_haar at the frame
 //    geometries that csrc/fused_rows.cu does not take (rows_per_frame != 128,
 //    pitch_step_count != 32).
 // It computes what fused_rows.py::_rows_kernel computes: window sample

@@ -5,7 +5,7 @@
 //                     or  classes      [B, n_tiles, 128]      i32
 //
 // Replaces the TPU kernel lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py
-// :: fused_band_rows_v3 (_rows_kernel_v3, with fuse_haar and pipe_select).
+// :: _rows_kernel_v3 (with fuse_haar and pipe_select).
 // It computes what that kernel computes: windows at the integer hop ->
 // two-stage DFT over bins [lo, hi) with the vDSP 2x scale -> quirk Q5
 // (positive parts x 1/512) -> |X|^2 -> band projection (1/width) ->

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel lbaudiodetective_tpu/ops/pallas/select_signs.py
 // :: select_sign_classes (_select_kernel / _select_body), and with it the
-// select tail kernel inside fused_band_rows_v3 (fused_rows_v2.py,
+// select tail kernel of the v3 rows kernel (fused_rows_v2.py,
 // _tail_kernel).
 //
 // Bound on the H100: device memory.  Each frame is read once (16 KB) and

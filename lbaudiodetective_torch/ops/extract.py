@@ -7,33 +7,34 @@ the JAX package's ``ops/extract.py``).
 Clips are padded to a bucket length; the number of valid subfingerprints
 travels beside them and trailing subfingerprints are zeroed.
 
-Rows implementation, under the reference's names and as the reference picks
-it (the JAX package's ``ops/extract.py:96-122``, CUDA standing for its
-accelerator):
+Routes, named for what runs on the card; :func:`extraction_route` is the one
+place that picks one, once an extractor.  On CUDA it takes the kernels
+wherever the reference takes its Pallas kernels on its accelerator (the JAX
+package's ``ops/extract.py:96-122``):
 
-- "fused_v3": integer hop dividing 128, window 2048.  On CUDA the fused
-  rows kernel (``ops.kernels.fused_rows``, 128 x 32 frames, k <= 128) or the
-  band-rows kernel's coefficients (``ops.kernels.band_rows``, every other
-  frame geometry), then the select.  On the CPU only at 128 x 32, as the
-  plain version of the fused rows kernel.
-- "fused": fractional hop on CUDA: the band-rows kernel's rows at the
-  host-computed window starts, then Haar and select.
-- "fused_v2": only when asked for (``rows_impl="fused_v2"``): the band-rows
-  kernel's coefficients at an integer hop dividing 128.
-- "conv": other integer hops; strided convolutions, then Haar and select.
-- "xla": window gather + matrix DFT (fractional hop on the CPU) or packed
+- "fused_rows": ``csrc/fused_rows.cu`` (``ops.kernels.fused_rows``), the
+  sign classes selected in the kernel.  CUDA, integer hop dividing 128,
+  window 2048, 128 x 32 frames, k <= 128.
+- "band_rows_coeffs": ``csrc/band_rows.cu`` (``ops.kernels.band_rows``) in
+  coefficients mode, then the select.  CUDA, the other frame geometries at
+  an integer hop dividing 128 and window 2048.
+- "band_rows": ``csrc/band_rows.cu`` rows at the host-computed window
+  starts, then Haar and the select.  CUDA, fractional hop.
+- "conv": strided convolutions, then Haar and the select.  Every other
+  integer hop on CUDA, every integer hop on the CPU.
+- "gather": window gather + matrix DFT (fractional hop on the CPU) or packed
   rfft (bins touching 0 or window/2, any device).
 
-A config the reference's kernels refuse (window 1024 with a fractional hop)
-raises ``ValueError`` on CUDA, as the reference does on its accelerator; no
-CUDA path runs the plain versions of the kernels.
+A config the kernels refuse (window 1024 with a fractional hop) raises
+``ValueError`` on CUDA, as the reference does on its accelerator; no CUDA
+route runs the plain versions of the kernels.
 
 Host audio reaches the device in chunks of clips
 (:meth:`FingerprintExtractor.extract_clips`): the host pads chunk c + 1
 into a page-locked staging slot while chunk c's copy and kernels run, and
 waits for the device only at the one copy back.  Where the fused rows
 kernel runs, a chunk fills whole waves of its grid (:func:`chunk_bounds`);
-every other rows path, and the CPU, takes the batch in one chunk.
+every other route, and the CPU, takes the batch in one chunk.
 
 ``extract_fingerprint`` and ``extract_fingerprint_batch`` record, a chunk
 each, the spans ``extract.pad`` (``clips``, ``samples_valid``,
@@ -69,71 +70,55 @@ from lbaudiodetective_torch.ops.kernels.select_signs import (
 from lbaudiodetective_torch.utils import profiling
 
 
-def rows_impl(config: FingerprintConfig, device: torch.device) -> str:
-    """The rows implementation for ``config`` on ``device`` (see the module
+def extraction_route(config: FingerprintConfig, device: torch.device) -> str:
+    """The route that extracts ``config`` on ``device`` (see the module
     docstring)."""
-    cuda = device.type == "cuda"
     if not bands_in_interior(config):
-        return "xla"          # bin 0 / negative band edges: packed rfft only
-    if config.has_integer_hop:
-        if reaches_v3(config) and (cuda or kernel_eligible(config)):
-            return "fused_v3"
+        return "gather"       # bin 0 / negative band edges: packed rfft only
+    cuda = device.type == "cuda"
+    if not config.has_integer_hop:
+        return "band_rows" if cuda else "gather"
+    if not (cuda and reaches_v3(config)):
         return "conv"
-    return "fused" if cuda else "xla"
+    return "fused_rows" if kernel_eligible(config) else "band_rows_coeffs"
 
 
-def extractor_arrays(config: FingerprintConfig, impl: str) -> dict[str, np.ndarray]:
-    """NumPy constants that the ``impl`` rows path reads."""
-    if impl == "fused_v3" and kernel_eligible(config):
+def route_arrays(config: FingerprintConfig, route: str) -> dict[str, np.ndarray]:
+    """NumPy constants that ``route`` reads."""
+    if route == "fused_rows":
         return rows_arrays(config)
-    if impl in ("fused_v3", "fused_v2"):
+    if route == "band_rows_coeffs":
         return band_rows.band_rows_arrays(config, haar=True)
     arrays = {"h_rows": haar_matrix(config.rows_per_frame),
               "h_cols": haar_matrix(config.pitch_step_count)}
-    if impl == "fused":
+    if route == "band_rows":
         arrays.update(band_rows.band_rows_arrays(config, haar=False))
-    elif impl == "conv":
+    elif route == "conv":
         w1, w2, proj_perm, _ = conv_constants(config)
         arrays.update(conv_w1=w1, conv_w2=w2, proj_perm=proj_perm)
-    elif impl != "xla":
-        raise ValueError(f"unknown rows_impl {impl!r}")
     return arrays
 
 
-def _single_step(n_tiles: int) -> bool:
-    """The reference's rule for a dispatch that fits one grid step of its
-    rows kernel (``lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py:667``):
-    tiles per step is the largest of 8, 4, 2, 1 dividing the tile count."""
-    tps = next(t for t in (8, 4, 2, 1) if n_tiles % t == 0)
-    return n_tiles // tps == 1
-
-
-def _wave_clips(n_tiles: int, device: torch.device) -> int:
+def _wave_clips(route: str, n_tiles: int, device: torch.device) -> int:
     """Clips of a chunk that fills whole waves of the fused rows kernel on
-    ``device``, 0 off CUDA (one chunk).  The kernel's grid is (tiles,
-    clips) with one CTA an SM (512 threads at up to 128 registers take an
-    SM's register file), so ``n_sm / gcd(tiles, n_sm)`` clips fill whole
-    waves: 33 at 56 tiles on 132 SMs."""
-    if device.type != "cuda":
+    ``device`` where ``route`` runs it, else 0 (one chunk).  The kernel's
+    grid is (tiles, clips) with one CTA an SM (512 threads at up to 128
+    registers take an SM's register file), so ``n_sm / gcd(tiles, n_sm)``
+    clips fill whole waves: 33 at 56 tiles on 132 SMs."""
+    if route != "fused_rows":
         return 0
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return n_sm // math.gcd(n_tiles, n_sm)
 
 
 def chunk_bounds(batch: int, step: int) -> list[tuple[int, int]]:
-    """Row ranges of ``batch`` clips in chunks of ``step`` (at least two)
-    and the rest: one chunk where ``step`` is 0 or the batch holds fewer
-    than two such chunks, and a rest of one clip joins the chunk before it,
-    since a lone clip may take another rows path (:func:`_single_step`).
-    Chunks of whole waves followed by the rest take the waves of one
-    launch."""
-    step = max(step, 2) if step > 0 else batch
-    if batch < 2 * step:
+    """Row ranges of ``batch`` clips in chunks of ``step`` and the rest: one
+    chunk where ``step`` is 0 or the batch holds fewer than two such chunks,
+    which would leave nothing to overlap.  Chunks of whole waves followed by
+    the rest take the waves of one launch."""
+    if step <= 0 or batch < 2 * step:
         return [(0, batch)]
-    bounds = [(a, min(a + step, batch)) for a in range(0, batch, step)]
-    if bounds[-1][1] - bounds[-1][0] == 1:
-        bounds[-2:] = [(bounds[-2][0], batch)]
-    return bounds
+    return [(a, min(a + step, batch)) for a in range(0, batch, step)]
 
 
 class _Staging:
@@ -200,11 +185,33 @@ def subfingerprints_from_rows(rows: torch.Tensor, config: FingerprintConfig,
     return (topcls == 1).to(torch.uint8), (topcls == 2).to(torch.uint8)
 
 
+def route_planes(route: str, audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
+                 consts: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """``[B, T]`` audio -> (pos, neg) uint8 ``[B, n_rows / rows_per_frame,
+    pairs]`` through ``route`` with its constant tensors ``consts``
+    (:func:`route_arrays`), every subfingerprint kept.  On a CPU tensor
+    each kernel wrapper runs its plain version."""
+    if route == "fused_rows":
+        topcls = fused_band_rows(audio, config, n_rows, consts)[..., :config.num_wavelet_pairs]
+        return (topcls == 1).to(torch.uint8), (topcls == 2).to(torch.uint8)
+    if route in ("band_rows", "band_rows_coeffs"):
+        rows = band_rows.band_rows(audio, config, n_rows, coeffs=route == "band_rows_coeffs",
+                                   consts=consts)
+    elif route == "conv":
+        rows = spectral.conv_band_rows(audio, config, n_rows, consts)
+    else:
+        starts = spectral.window_starts(config, n_rows)
+        windows = spectral.frame_windows(audio, starts, config.window_size)
+        rows = spectral.band_energies(windows, config)
+    return subfingerprints_from_rows(rows, config, consts,
+                                     rows_are_coeffs=route == "band_rows_coeffs")
+
+
 class FingerprintExtractor(nn.Module):
     """Extraction for one config on one device.  Holds the constant
-    matrices of the chosen rows path as buffers (and those of another path
-    once a call asks for it); ``arrays`` replaces the NumPy constants of the
-    chosen path (for example with the JAX package's own)."""
+    matrices of its route (:func:`extraction_route`) as buffers; ``arrays``
+    replaces the route's NumPy constants (for example with the JAX
+    package's own)."""
 
     def __init__(self, config: FingerprintConfig | None = None,
                  device: torch.device | str = DEFAULT_DEVICE,
@@ -212,12 +219,11 @@ class FingerprintExtractor(nn.Module):
         super().__init__()
         self.config = config or FingerprintConfig()
         self.device = resolve_device(device, "FingerprintExtractor")
-        self.impl = rows_impl(self.config, self.device)
+        self.route = extraction_route(self.config, self.device)
         if arrays is None:
-            arrays = extractor_arrays(self.config, self.impl)
+            arrays = route_arrays(self.config, self.route)
         for name, t in constants_to_tensors(arrays, self.device).items():
             self.register_buffer(name, t, persistent=False)
-        self._other_consts: dict[str, dict[str, torch.Tensor]] = {}
         self._rings: list[_Staging] = []        # idle staging rings
         self._rings_lock = threading.Lock()
 
@@ -225,60 +231,21 @@ class FingerprintExtractor(nn.Module):
     def consts(self) -> dict[str, torch.Tensor]:
         return dict(self.named_buffers())
 
-    def consts_for(self, impl: str) -> dict[str, torch.Tensor]:
-        """The constant tensors of the ``impl`` rows path."""
-        if impl == self.impl:
-            return self.consts
-        if impl not in self._other_consts:
-            self._other_consts[impl] = constants_to_tensors(
-                extractor_arrays(self.config, impl), self.device)
-        return self._other_consts[impl]
-
     def forward(self, audio: torch.Tensor, n_valid_sub: torch.Tensor,
-                n_rows: int, rows_impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+                n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
         """audio ``[B, T]`` or ``[T]`` float32, padded so the last window
         fits; n_valid_sub ``[B]`` or scalar (a host value goes to the
         device through pinned memory before the kernels are queued, so that
-        no copy waits for them).  ``rows_impl`` is "auto" (the
-        extractor's own choice) or one of "fused_v3", "fused_v2", "fused",
-        "conv", "xla".  Returns (pos, neg) uint8 ``[..., n_rows /
-        rows_per_frame, pairs]``, invalid subfingerprints zeroed."""
+        no copy waits for them).  Returns (pos, neg) uint8 ``[...,
+        n_rows / rows_per_frame, pairs]``, invalid subfingerprints
+        zeroed."""
         cfg = self.config
         if n_rows % cfg.rows_per_frame:
             raise ValueError("n_rows must be a multiple of rows_per_frame")
-        impl = self.impl if rows_impl == "auto" else rows_impl
         batched = audio if audio.dim() == 2 else audio[None]
         n_valid = to_device(torch.as_tensor(n_valid_sub), batched.device).reshape(-1)
-        consts = self.consts_for(impl)
+        pos, neg = route_planes(self.route, batched, cfg, n_rows, self.consts)
         n_sub = n_rows // cfg.rows_per_frame
-        k = cfg.num_wavelet_pairs
-        fused_128x32 = impl == "fused_v3" and kernel_eligible(cfg)
-        if fused_128x32 and not (batched.shape[0] == 1 and _single_step(n_sub)):
-            # The kernel selects in place; a single clip that fits one 8-tile
-            # step takes coefficients + the standalone select, as the
-            # reference does (the JAX package's ops/extract.py:60-70).
-            topcls = fused_band_rows(batched, cfg, n_rows, consts)[..., :k]
-            pos = (topcls == 1).to(torch.uint8)
-            neg = (topcls == 2).to(torch.uint8)
-        else:
-            if fused_128x32:
-                rows = fused_band_rows(batched, cfg, n_rows, consts, emit="coeffs")
-            elif impl == "fused_v3":
-                rows = band_rows.fused_band_rows_v3(batched, cfg, n_rows, consts,
-                                                    fuse_haar=True)
-            elif impl == "fused_v2":
-                rows = band_rows.fused_band_rows_v2(batched, cfg, n_rows, consts,
-                                                    fuse_haar=True)
-            elif impl == "fused":
-                rows = band_rows.fused_band_rows(batched, cfg, n_rows, consts)
-            elif impl == "conv":
-                rows = spectral.conv_band_rows(batched, cfg, n_rows, consts)
-            else:
-                starts = spectral.window_starts(cfg, n_rows)
-                windows = spectral.frame_windows(batched, starts, cfg.window_size)
-                rows = spectral.band_energies(windows, cfg)
-            pos, neg = subfingerprints_from_rows(
-                rows, cfg, consts, rows_are_coeffs=impl in ("fused_v3", "fused_v2"))
         valid = (torch.arange(n_sub, device=pos.device)[None, :]
                  < n_valid[:, None]).to(torch.uint8)[..., None]
         pos, neg = pos * valid, neg * valid
@@ -306,8 +273,7 @@ class FingerprintExtractor(nn.Module):
         only at the one copy back of the whole batch."""
         cfg = self.config
         b_pad, n_sub = len(n_valid_sub), n_rows // cfg.rows_per_frame
-        waves = self.impl == "fused_v3" and kernel_eligible(cfg)
-        bounds = chunk_bounds(b_pad, _wave_clips(n_sub, self.device) if waves else 0)
+        bounds = chunk_bounds(b_pad, _wave_clips(self.route, n_sub, self.device))
         n_valid = to_device(np.asarray(n_valid_sub, np.int32), self.device)
         x = torch.empty((b_pad, t_pad), dtype=torch.float32, device=self.device)
         out = torch.empty((2, b_pad, n_sub, cfg.num_wavelet_pairs), dtype=torch.uint8,
@@ -347,14 +313,13 @@ def get_extractor(config: FingerprintConfig,
 
 def extract_fingerprint_padded(audio: torch.Tensor, n_valid_sub: torch.Tensor,
                                config: FingerprintConfig, n_rows: int,
-                               rows_impl: str = "auto",
                                extractor: FingerprintExtractor | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Extraction over padded audio already on its device (see
     :meth:`FingerprintExtractor.forward`)."""
     if extractor is None:
         extractor = get_extractor(config, str(audio.device))
-    return extractor(audio, n_valid_sub, n_rows, rows_impl)
+    return extractor(audio, n_valid_sub, n_rows)
 
 
 def required_padded_length(config: FingerprintConfig, n_rows: int) -> int:

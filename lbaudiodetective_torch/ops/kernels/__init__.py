@@ -8,15 +8,12 @@ from lbaudiodetective_torch.ops.kernels.match_packed import match_one_vs_many_fu
 from lbaudiodetective_torch.ops.kernels.select_signs import select_sign_classes
 
 #: Every kernel wrapper by the name its launch count goes under; each
-#: carries a ``launches`` count.  The three ``band_rows.*`` wrappers launch
-#: the one kernel of ``csrc/band_rows.cu`` for three TPU kernels.
+#: carries a ``launches`` count.
 WRAPPERS = {
     "select_sign_classes": select_sign_classes,
     "fused_band_rows": fused_band_rows,
     "match_one_vs_many_fused": match_one_vs_many_fused,
-    "band_rows.fused_band_rows": band_rows.fused_band_rows,
-    "band_rows.fused_band_rows_v2": band_rows.fused_band_rows_v2,
-    "band_rows.fused_band_rows_v3": band_rows.fused_band_rows_v3,
+    "band_rows": band_rows.band_rows,
 }
 
 

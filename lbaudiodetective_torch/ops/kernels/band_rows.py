@@ -2,24 +2,23 @@
 starts: ``[B, T] f32 audio -> [B, n_rows, bands] f32``.
 
 One hand-written kernel, ``csrc/band_rows.cu``, ports three TPU kernels of
-``lbaudiodetective_tpu/ops/pallas/``:
-
-- ``fused_rows.py::fused_band_rows`` (fractional hop, rows):
-  :func:`fused_band_rows`;
-- ``fused_rows_v2.py::fused_band_rows_v2`` (integer hop, rows or with
-  ``fuse_haar`` the coefficients): :func:`fused_band_rows_v2`;
-- ``fused_rows_v2.py::fused_band_rows_v3`` with ``fuse_haar`` at the frame
-  geometries ``csrc/fused_rows.cu`` does not take: :func:`fused_band_rows_v3`.
+``lbaudiodetective_tpu/ops/pallas/``: ``fused_rows.py::fused_band_rows``
+(fractional hop, rows), ``fused_rows_v2.py::_rows_kernel_v2`` (integer
+hop, rows or with ``fuse_haar`` the coefficients) and
+``fused_rows_v2.py::_rows_kernel_v3`` with ``fuse_haar`` at the frame
+geometries ``csrc/fused_rows.cu`` does not take.  One wrapper,
+:func:`band_rows`, launches it in rows or coefficients mode; which configs
+reach it is decided by ``ops/extract.py::extraction_route``.
 
 The kernel runs stage 2 on the tensor cores in 3xTF32 (``csrc/dft_stage2.cuh``,
 as ``csrc/fused_rows.cu`` does) with the signal's level taken out of residue
 0; it is held to the plain version evaluated in float64.  Window starts are
 ``FingerprintConfig.row_starts`` (a float64 floor on the host), sent to the
-device as an int32 table.  On a CUDA tensor each wrapper
-launches the kernel or raises; on a CPU tensor it runs the plain version
+device as an int32 table.  On a CUDA tensor the wrapper launches the kernel
+or raises; on a CPU tensor it runs the plain version
 (:func:`band_rows_plain`: window gather + matrix DFT band energies, + Haar
-products), which nothing on a CUDA path calls.  Each wrapper counts its own
-launches (``ops.kernels.launch_counts``).
+products), which nothing on a CUDA path calls.  ``band_rows.launches``
+counts the launches (``ops.kernels.launch_counts``).
 """
 
 from __future__ import annotations
@@ -33,13 +32,11 @@ import torch.nn.functional as F
 from lbaudiodetective_torch.config import FingerprintConfig
 from lbaudiodetective_torch.ops import spectral
 from lbaudiodetective_torch.ops.constants import (
-    STAGE1, constants_to_tensors, haar_matrix, kernel_constants, projection_passes,
-    stage2_fragments)
+    constants_to_tensors, haar_matrix, kernel_constants, projection_passes, stage2_fragments)
 from lbaudiodetective_torch.ops.haar import haar_2d
 
 #: The one window the TPU kernels run at: 16 rows of 128 lanes.
 WINDOW = 2048
-_LANE = 128
 
 
 def band_rows_arrays(config: FingerprintConfig, haar: bool) -> dict[str, np.ndarray]:
@@ -151,10 +148,14 @@ def band_rows_plain(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
     return haar_2d(rows.reshape(b, n_rows // rpf, rpf, bands)).reshape(b, n_rows, bands)
 
 
-def _band_rows(wrapper, audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
-               coeffs: bool, consts: dict[str, torch.Tensor] | None) -> torch.Tensor:
-    """Launch ``csrc/band_rows.cu`` for ``wrapper``, or run the plain
-    version on a CPU tensor."""
+def band_rows(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
+              coeffs: bool = False, consts: dict[str, torch.Tensor] | None = None
+              ) -> torch.Tensor:
+    """Band rows ``[B, n_rows, bands]`` at the windows of
+    ``config.row_starts``, or with ``coeffs`` each frame's 2-D Haar
+    coefficients.  ``consts`` holds ``band_rows_arrays(config, coeffs)`` on
+    ``audio``'s device (built when omitted).  A CUDA tensor launches
+    ``csrc/band_rows.cu``; a CPU tensor runs :func:`band_rows_plain`."""
     _check(audio, config, n_rows)
     if audio.device.type == "cpu":
         return band_rows_plain(audio, config, n_rows, coeffs)
@@ -163,15 +164,15 @@ def _band_rows(wrapper, audio: torch.Tensor, config: FingerprintConfig, n_rows: 
     x = audio.contiguous()
     if consts is None:
         consts = _device_constants(config, coeffs, str(x.device))
-    return launch(wrapper, x, config, n_rows, coeffs, consts, kernel_constants(config)[5])
+    return launch(x, config, n_rows, coeffs, consts, kernel_constants(config)[5])
 
 
-def launch(wrapper, x: torch.Tensor, config: FingerprintConfig, n_rows: int, coeffs: bool,
+def launch(x: torch.Tensor, config: FingerprintConfig, n_rows: int, coeffs: bool,
            consts: dict[str, torch.Tensor], k_max: int) -> torch.Tensor:
     """One launch of ``csrc/band_rows.cu`` on the contiguous CUDA audio ``x``
     with the constant tensors ``consts`` (``band_rows_arrays``: stage 2 and
     the projection in passes of 48 of ``k_max`` slots a residue), counted
-    in ``wrapper.launches``."""
+    in ``band_rows.launches``."""
     from lbaudiodetective_torch.ops.kernels._build import check, load_library
 
     lib = load_library()
@@ -197,56 +198,8 @@ def launch(wrapper, x: torch.Tensor, config: FingerprintConfig, n_rows: int, coe
             consts["h_rows"].data_ptr() if coeffs else None,
             consts["h_cols_t"].data_ptr() if coeffs else None,
             1.0 / config.spectrum_scale_divisor, out.data_ptr(), stream), "band_rows")
-    wrapper.launches += 1
+    band_rows.launches += 1
     return out
 
 
-def fused_band_rows(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
-                    consts: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
-    """Band rows ``[B, n_rows, bands]`` at any hop: the port of
-    ``lbaudiodetective_tpu/ops/pallas/fused_rows.py::fused_band_rows``, which
-    the reference runs for a fractional hop.  ``consts`` holds
-    ``band_rows_arrays(config, False)`` on ``audio``'s device (built when
-    omitted)."""
-    return _band_rows(fused_band_rows, audio, config, n_rows, False, consts)
-
-
-def _integer_hop_geometry(config: FingerprintConfig, n_rows: int, name: str,
-                          v3: bool) -> None:
-    """The geometry checks of the reference's v2/v3 wrappers."""
-    if not config.has_integer_hop:
-        raise ValueError(f"{name} requires an integer hop")
-    hop = int(config.hop_in_processing_samples)
-    if hop <= 0 or _LANE % hop:
-        raise ValueError(f"{name} requires the hop to divide 128")
-    if config.window_size != STAGE1 * _LANE:
-        raise ValueError(f"{name} requires window_size == 2048")
-    rpf = config.rows_per_frame
-    if n_rows % rpf or rpf % (_LANE // hop) or (v3 and (rpf * hop) % _LANE):
-        raise ValueError(f"unsupported geometry for {name}")
-
-
-def fused_band_rows_v2(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
-                       consts: dict[str, torch.Tensor] | None = None,
-                       fuse_haar: bool = False) -> torch.Tensor:
-    """Port of ``lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py::
-    fused_band_rows_v2``: rows, or with ``fuse_haar`` the per-frame 2-D Haar
-    coefficients, at an integer hop that divides 128."""
-    _integer_hop_geometry(config, n_rows, "fused_band_rows_v2", v3=False)
-    return _band_rows(fused_band_rows_v2, audio, config, n_rows, fuse_haar, consts)
-
-
-def fused_band_rows_v3(audio: torch.Tensor, config: FingerprintConfig, n_rows: int,
-                       consts: dict[str, torch.Tensor] | None = None,
-                       fuse_haar: bool = False) -> torch.Tensor:
-    """Port of ``lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py::
-    fused_band_rows_v3`` (rows, or the coefficients with ``fuse_haar``) at
-    any frame geometry the reference's v3 accepts; the extraction path uses
-    it where ``csrc/fused_rows.cu`` does not take the frame."""
-    _integer_hop_geometry(config, n_rows, "fused_band_rows_v3", v3=True)
-    return _band_rows(fused_band_rows_v3, audio, config, n_rows, fuse_haar, consts)
-
-
-fused_band_rows.launches = 0
-fused_band_rows_v2.launches = 0
-fused_band_rows_v3.launches = 0
+band_rows.launches = 0

@@ -1,7 +1,7 @@
 """Fused band rows + 2-D Haar (+ top-128 select) for an integer hop.
 
 Port of ``lbaudiodetective_tpu/ops/pallas/fused_rows_v2.py ::
-fused_band_rows_v3`` with ``fuse_haar=True`` (coefficients) and
+_rows_kernel_v3`` with ``fuse_haar=True`` (coefficients) and
 ``pipe_select=True`` (classes).  On a CUDA tensor the hand-written kernel
 ``csrc/fused_rows.cu`` runs; on a CPU tensor the plain version below
 (strided-convolution rows, Haar products, plain select).

@@ -55,10 +55,10 @@ def main() -> None:
         _build.load_library(flags)
         report = _build.ptxas_report(flags).split("== band_rows.cu", 1)[-1].split("==", 1)[0]
         info = [ln.strip() for ln in report.splitlines() if "spill" in ln or "Used" in ln]
-        ms = cs.cuda_ms(lambda: band_rows.fused_band_rows(batch, cfg, n), iters=5)
+        ms = cs.cuda_ms(lambda: band_rows.band_rows(batch, cfg, n), iters=5)
         line = f"[{name}] [256, 7168 rows] {ms:.3f} ms (ptxas: {' | '.join(info)})"
         if skip in (0, 16):
-            got = band_rows.fused_band_rows(batch, cfg, n)[:16].double()
+            got = band_rows.band_rows(batch, cfg, n)[:16].double()
             fps = AudioDetective(l300, device=dev).process_decoded_batch(clips)
             agree = [bit_agreement(f.pos, f.neg, *o) for f, o in zip(fps, oracle)]
             line += (f"; largest error {cs.bar_share(got, exp):.3f} of the bar against the "

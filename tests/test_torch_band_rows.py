@@ -1,11 +1,11 @@
-"""The band-rows kernel's plain version (``ops/kernels/band_rows.py``) vs the
-JAX package's Pallas kernels in interpret mode, as the JAX package's own
-tests run them: ``fused_band_rows`` at fractional hops, ``fused_band_rows_v2``
-at hop 8 (rows and Haar coefficients) and ``fused_band_rows_v3`` with
-``fuse_haar`` at frame geometries other than 128 x 32.  Tolerance rtol 1e-4,
-atol 1e-6 * max|ref|, the JAX package's own bar (tests/test_fused_rows.py):
-f32 summation order differs between the formulations.  The CUDA kernel's own
-test is in tests/test_torch_cuda.py."""
+"""The band-rows kernel's plain version (``ops/kernels/band_rows.py::band_rows``
+on CPU tensors) vs the JAX package's Pallas kernels in interpret mode, as the
+JAX package's own tests run them: ``fused_band_rows`` at fractional hops,
+``fused_band_rows_v2`` at hop 8 (rows and Haar coefficients) and
+``fused_band_rows_v3`` with ``fuse_haar`` at frame geometries other than
+128 x 32.  Tolerance rtol 1e-4, atol 1e-6 * max|ref|, the JAX package's own
+bar (tests/test_fused_rows.py): f32 summation order differs between the
+formulations.  The CUDA kernel's own test is in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.ops import constants as port  # noqa: E402
-from lbaudiodetective_torch.ops.extract import required_padded_length  # noqa: E402
+from lbaudiodetective_torch.ops.extract import (  # noqa: E402
+    extraction_route, required_padded_length)
 from lbaudiodetective_torch.ops.kernels import band_rows  # noqa: E402
 from tests._torch_common import (  # noqa: E402
     H100_SMEM_BYTES, band_rows_layout, brown_noise, jax_config)
@@ -46,7 +47,7 @@ def test_rows_match_jax_fused_band_rows(name):
 
     cfg, n_rows, audio = _inputs(FRACTIONAL[name], 61)
     assert not cfg.has_integer_hop
-    got = band_rows.fused_band_rows(torch.from_numpy(audio), cfg, n_rows)
+    got = band_rows.band_rows(torch.from_numpy(audio), cfg, n_rows)
     assert got.shape == (2, n_rows, cfg.pitch_step_count) and got.dtype == torch.float32
     exp = np.asarray(jax_rows(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True))
     _assert_close(got.numpy(), exp)
@@ -60,8 +61,7 @@ def test_v2_matches_jax_at_hop_8(fuse_haar):
 
     cfg, n_rows, audio = _inputs({}, 62)
     assert cfg.hop_in_processing_samples == 8
-    got = band_rows.fused_band_rows_v2(torch.from_numpy(audio), cfg, n_rows,
-                                       fuse_haar=fuse_haar)
+    got = band_rows.band_rows(torch.from_numpy(audio), cfg, n_rows, coeffs=fuse_haar)
     exp = np.asarray(jax_v2(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True,
                             fuse_haar=fuse_haar))
     _assert_close(got.numpy(), exp)
@@ -74,8 +74,7 @@ def test_v3_coefficients_match_jax_at_other_geometries(name):
     from lbaudiodetective_tpu.ops.pallas.fused_rows_v2 import fused_band_rows_v3 as jax_v3
 
     cfg, n_rows, audio = _inputs(GEOMETRIES[name], 63)
-    got = band_rows.fused_band_rows_v3(torch.from_numpy(audio), cfg, n_rows,
-                                       fuse_haar=True)
+    got = band_rows.band_rows(torch.from_numpy(audio), cfg, n_rows, coeffs=True)
     exp = np.asarray(jax_v3(jnp.asarray(audio), jax_config(cfg), n_rows, interpret=True,
                             fuse_haar=True))
     _assert_close(got.numpy(), exp)
@@ -83,19 +82,22 @@ def test_v3_coefficients_match_jax_at_other_geometries(name):
 
 def test_wrappers_raise_where_the_jax_kernels_do():
     """Window 1024 with a fractional hop fails inside the JAX package's
-    kernel; the port raises ValueError.  The v2/v3 wrappers refuse a
-    fractional hop and a hop that does not divide 128, as the JAX ones do."""
+    kernel; the port raises ValueError.  The configs the reference's v3 rule
+    refuses (a fractional hop, a hop that does not divide 128, window 1024,
+    frames of fewer rows than 128 / hop) do not route to the band-rows
+    kernel's coefficients on CUDA."""
     cfg = FingerprintConfig(window_size=1024, integer_hop=False)
     x = torch.zeros((1, 8192))
     with pytest.raises(ValueError, match="window_size == 2048"):
-        band_rows.fused_band_rows(x, cfg, 128)
-    for fn in (band_rows.fused_band_rows_v2, band_rows.fused_band_rows_v3):
-        with pytest.raises(ValueError, match="integer hop"):
-            fn(x, FingerprintConfig(integer_hop=False), 128)
-        with pytest.raises(ValueError, match="divide 128"):
-            fn(x, FingerprintConfig(hop_domain="proc", analysis_stride=96), 128)
+        band_rows.band_rows(x, cfg, 128)
+    cuda = torch.device("cuda")
+    for kw, route in ((dict(integer_hop=False), "band_rows"),
+                      (dict(hop_domain="proc", analysis_stride=96), "conv"),
+                      (dict(window_size=1024), "conv"),
+                      (dict(rows_per_frame=8), "conv")):
+        assert extraction_route(FingerprintConfig(**kw), cuda) == route, kw
     with pytest.raises(ValueError, match="multiple of rows_per_frame"):
-        band_rows.fused_band_rows(x, FingerprintConfig(integer_hop=False), 100)
+        band_rows.band_rows(x, FingerprintConfig(integer_hop=False), 100)
 
 
 def test_constants_equal_the_jax_arrays():

@@ -95,7 +95,7 @@ def test_jax_built_constants_give_identical_output(cfg_name):
 
     own = FingerprintExtractor(cfg, "cpu")
     from_jax = FingerprintExtractor(cfg, "cpu", arrays=jax_arrays)
-    assert own.impl == from_jax.impl == "fused_v3"
+    assert own.route == from_jax.route == "conv"
     n_sub = 8
     n_rows = n_sub * cfg.rows_per_frame
     from lbaudiodetective_torch.ops.extract import required_padded_length

@@ -110,19 +110,17 @@ def test_rows_kernel_with_non_finite_samples_matches_plain(hop, cuda_device):
 
 
 BAND_ROWS_CASES = {
-    # name: (config kwargs, wrapper, fuse_haar / coefficients)
-    "rows_oracle_mode": (dict(integer_hop=False), "fused_band_rows", False),
-    "rows_rate_8000": (dict(processing_sample_rate=8000.0, integer_hop=False),
-                       "fused_band_rows", False),
-    "rows_pitch_16": (dict(pitch_step_count=16, integer_hop=False), "fused_band_rows", False),
-    "rows_rows_256": (dict(rows_per_frame=256, integer_hop=False), "fused_band_rows", False),
-    "rows_hop_512_split": (dict(hop_domain="proc", analysis_stride=512),
-                           "fused_band_rows", False),
-    "v2_rows": (dict(), "fused_band_rows_v2", False),
-    "v2_coeffs": (dict(), "fused_band_rows_v2", True),
-    "v3_pitch_16": (dict(pitch_step_count=16), "fused_band_rows_v3", True),
-    "v3_rows_256": (dict(rows_per_frame=256), "fused_band_rows_v3", True),
-    "v3_length_300": (dict(subfingerprint_length=300), "fused_band_rows_v3", True),
+    # name: (config kwargs, coefficients)
+    "rows_oracle_mode": (dict(integer_hop=False), False),
+    "rows_rate_8000": (dict(processing_sample_rate=8000.0, integer_hop=False), False),
+    "rows_pitch_16": (dict(pitch_step_count=16, integer_hop=False), False),
+    "rows_rows_256": (dict(rows_per_frame=256, integer_hop=False), False),
+    "rows_hop_512_split": (dict(hop_domain="proc", analysis_stride=512), False),
+    "v2_rows": (dict(), False),
+    "v2_coeffs": (dict(), True),
+    "v3_pitch_16": (dict(pitch_step_count=16), True),
+    "v3_rows_256": (dict(rows_per_frame=256), True),
+    "v3_length_300": (dict(subfingerprint_length=300), True),
 }
 
 
@@ -132,17 +130,15 @@ def test_band_rows_kernel_matches_plain(case, cuda_device):
     (kernel 2 at other geometries, and 4 with fuse_haar) against the plain
     version on the same tensors; hop 512 splits 128 windows into sub-tiles
     of 64.  Two runs are bit-identical."""
-    kw, name, coeffs = BAND_ROWS_CASES[case]
+    kw, coeffs = BAND_ROWS_CASES[case]
     cfg = FingerprintConfig(**kw)
     n_rows = 4 * cfg.rows_per_frame
     x = torch.from_numpy(brown_noise(52, 3, required_padded_length(cfg, n_rows))).to(cuda_device)
-    wrapper = getattr(band_rows, name)
-    extra = {} if name == "fused_band_rows" else {"fuse_haar": coeffs}
-    before = wrapper.launches
-    got = wrapper(x, cfg, n_rows, **extra)
-    again = wrapper(x, cfg, n_rows, **extra)
+    before = band_rows.band_rows.launches
+    got = band_rows.band_rows(x, cfg, n_rows, coeffs)
+    again = band_rows.band_rows(x, cfg, n_rows, coeffs)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 2
+    assert band_rows.band_rows.launches == before + 2
     assert got.shape == (3, n_rows, cfg.pitch_step_count) and torch.equal(got, again)
     exp = band_rows.band_rows_plain(x.double(), cfg, n_rows, coeffs).cpu().numpy()
     np.testing.assert_allclose(got.cpu().numpy(), exp, rtol=5e-4,
@@ -157,7 +153,7 @@ def test_band_rows_kernel_with_non_finite_samples_matches_plain(case, cuda_devic
     sample zero only the windows that hold them, as in the plain version
     (whose non-finite handling tests/test_torch_band_rows.py holds to the
     JAX package)."""
-    kw, name, coeffs = BAND_ROWS_CASES[case]
+    kw, coeffs = BAND_ROWS_CASES[case]
     cfg = FingerprintConfig(**kw)
     n_rows = 4 * cfg.rows_per_frame
     audio = brown_noise(54, 2, required_padded_length(cfg, n_rows))
@@ -165,8 +161,7 @@ def test_band_rows_kernel_with_non_finite_samples_matches_plain(case, cuda_devic
     audio[0, cfg.row_starts(n_rows)[sub]] = np.nan
     audio[1, 0] = np.inf
     x = torch.from_numpy(audio).to(cuda_device)
-    extra = {} if name == "fused_band_rows" else {"fuse_haar": coeffs}
-    got = getattr(band_rows, name)(x, cfg, n_rows, **extra).cpu().numpy()
+    got = band_rows.band_rows(x, cfg, n_rows, coeffs).cpu().numpy()
     exp = band_rows.band_rows_plain(x.double(), cfg, n_rows, coeffs).cpu().numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, exp, rtol=5e-4, atol=3e-6 * float(np.abs(exp).max()))
@@ -193,10 +188,9 @@ def test_band_rows_kernel_runs_passes_of_48_slots(cuda_device):
     assert consts["t2_frag"].shape[1] == 2
     n_rows = 4 * cfg.rows_per_frame
     x = torch.from_numpy(brown_noise(55, 2, required_padded_length(cfg, n_rows))).to(cuda_device)
-    before = band_rows.fused_band_rows.launches
-    got = band_rows.launch(band_rows.fused_band_rows, x, cfg, n_rows, False, consts,
-                           spread).cpu().numpy()
-    assert band_rows.fused_band_rows.launches == before + 1
+    before = band_rows.band_rows.launches
+    got = band_rows.launch(x, cfg, n_rows, False, consts, spread).cpu().numpy()
+    assert band_rows.band_rows.launches == before + 1
     exp = band_rows.band_rows_plain(x.double(), cfg, n_rows).cpu().numpy()
     np.testing.assert_allclose(got, exp, rtol=5e-4, atol=3e-6 * float(np.abs(exp).max()))
 
@@ -233,9 +227,7 @@ def test_every_config_extracts_on_cuda(kw, cuda_device):
     kernels.reset_launch_counts()
     fps = AudioDetective(cfg, device=cuda_device).process_decoded_batch(clips)
     counts = kernels.launch_counts()
-    key = ("band_rows.fused_band_rows_v3" if cfg.has_integer_hop
-           else "band_rows.fused_band_rows")
-    assert counts[key] == 1
+    assert counts["band_rows"] == 1
     refs = AudioDetective(cfg, device="cpu").process_decoded_batch(clips)
     for clip, f, r in zip(clips, fps, refs):
         assert f.num_subfingerprints == r.num_subfingerprints > 0
@@ -248,14 +240,14 @@ def test_cuda_extraction_runs_kernels_and_equals_cpu(cuda_device):
     cfg = FingerprintConfig()
     gpu, cpu = AudioDetective(cfg, device=cuda_device), AudioDetective(cfg, device="cpu")
     long_clip, short_clip = synth_clip(70, 4.0, cfg), synth_clip(71, 1.5, cfg)
-    kernels.reset_launch_counts()
-    fps = [gpu.process_decoded(long_clip), gpu.process_decoded(short_clip)]
-    counts = kernels.launch_counts()
-    # A 4 s clip takes the fused classes mode; a single clip that fits one
-    # 8-tile step takes coefficients + the standalone select.
-    assert counts == {"select_sign_classes": 1, "fused_band_rows": 2,
-                      "match_one_vs_many_fused": 0, "band_rows.fused_band_rows": 0,
-                      "band_rows.fused_band_rows_v2": 0, "band_rows.fused_band_rows_v3": 0}
+    # Each clip, the 1.5 s one of a single 8-subfingerprint tile included,
+    # is one launch of the fused rows kernel, which selects in place.
+    fps = []
+    for clip in (long_clip, short_clip):
+        kernels.reset_launch_counts()
+        fps.append(gpu.process_decoded(clip))
+        assert kernels.launch_counts() == {"select_sign_classes": 0, "fused_band_rows": 1,
+                                           "match_one_vs_many_fused": 0, "band_rows": 0}
     refs = [cpu.process_decoded(long_clip), cpu.process_decoded(short_clip)]
     for f, r in zip(fps, refs):
         assert f.num_subfingerprints == r.num_subfingerprints
@@ -283,13 +275,13 @@ def test_chunked_extraction_equals_one_launch(cuda_device, enroll_clips, monkeyp
     from lbaudiodetective_torch.ops import extract
 
     cfg = FingerprintConfig()
-    step = extract._wave_clips(56, cuda_device)
+    step = extract._wave_clips("fused_rows", 56, cuda_device)
     n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert step * 56 % n_sm == 0 and len(extract.chunk_bounds(256, step)) > 1
     kernels.reset_launch_counts()
     chunked = extract.extract_fingerprint_batch(enroll_clips, cfg, device=cuda_device)
     assert kernels.launch_counts()["fused_band_rows"] == len(extract.chunk_bounds(256, step))
-    monkeypatch.setattr(extract, "_wave_clips", lambda n_tiles, device: 0)
+    monkeypatch.setattr(extract, "_wave_clips", lambda route, n_tiles, device: 0)
     kernels.reset_launch_counts()
     single = extract.extract_fingerprint_batch(enroll_clips, cfg, device=cuda_device)
     assert kernels.launch_counts()["fused_band_rows"] == 1
@@ -331,9 +323,9 @@ def test_unported_config_raises_on_cuda(cuda_device):
 
     cfg = FingerprintConfig(integer_hop=False)
     clip = synth_clip(73, 2.0, cfg)
-    before = band_rows.fused_band_rows.launches
+    before = band_rows.band_rows.launches
     pos, neg, n = extract_fingerprint(clip, cfg, device=cuda_device)
-    assert band_rows.fused_band_rows.launches == before + 1
+    assert band_rows.band_rows.launches == before + 1
     cpos, cneg, cn = extract_fingerprint(clip, cfg, device="cpu")
     assert n == cn > 0 and bit_agreement(pos, neg, cpos, cneg) >= 0.999
     cfg = FingerprintConfig(window_size=1024, integer_hop=False)

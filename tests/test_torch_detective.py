@@ -197,7 +197,7 @@ def test_chunked_batch_records_a_span_a_chunk(monkeypatch):
     from lbaudiodetective_torch.ops import extract
     from lbaudiodetective_torch.utils import profiling
 
-    monkeypatch.setattr(extract, "_wave_clips", lambda n_tiles, device: 2)
+    monkeypatch.setattr(extract, "_wave_clips", lambda route, n_tiles, device: 2)
     det = AudioDetective(device="cpu")
     cfg = det.config
     sig = brown_noise(63, 5, 2 * 5512).astype(np.float32)
@@ -207,13 +207,14 @@ def test_chunked_batch_records_a_span_a_chunk(monkeypatch):
         det.process_decoded_batch(clips)
     names = [s.name for s in rec.spans]
     chunk = ["extract.pad", "extract.h2d", "extract.launch"]
-    assert names == chunk * 2 + ["extract.d2h", "fingerprint.wrap", "detective.batch"]
-    per_chunk = rec.spans[:6]
-    assert [(s.attrs["chunk"], s.attrs["chunks"]) for s in per_chunk] == [(0, 2)] * 3 + [(1, 2)] * 3
+    assert names == chunk * 3 + ["extract.d2h", "fingerprint.wrap", "detective.batch"]
+    per_chunk = rec.spans[:9]
+    assert [(s.attrs["chunk"], s.attrs["chunks"]) for s in per_chunk] == [
+        (c, 3) for c in range(3) for _ in chunk]
     assert all(s.attrs["pinned"] is False for s in per_chunk if s.name == "extract.h2d")
     pads = [s for s in per_chunk if s.name == "extract.pad"]
-    assert [s.attrs["clips"] for s in pads] == [2, 3]
+    assert [s.attrs["clips"] for s in pads] == [2, 2, 1]
     assert sum(s.attrs["samples_valid"] for s in pads) == sum(c.samples.shape[0] for c in clips)
     h2d = [s.attrs["bytes"] for s in per_chunk if s.name == "extract.h2d"]
     assert h2d == [p.attrs["samples_padded"] * 4 for p in pads]
-    assert "chunk" not in rec.spans[6].attrs
+    assert "chunk" not in rec.spans[9].attrs

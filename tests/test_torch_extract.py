@@ -1,7 +1,7 @@
 """End-to-end extraction of the port vs the JAX package and the live NumPy
 oracle on synthetic clips (the bar of tests/test_extract_parity.py: >= 99.9 %
-of bits), plus batch == single, zeroed padding, silence, and the rows
-implementation each config takes on each device."""
+of bits), plus batch == single, zeroed padding, silence, and the route
+each config takes on each device."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,7 @@ from lbaudiodetective_torch.config import FingerprintConfig  # noqa: E402
 from lbaudiodetective_torch.io.decode import DecodedAudio  # noqa: E402
 from lbaudiodetective_torch.ops import extract  # noqa: E402
 from lbaudiodetective_torch.ops.extract import (  # noqa: E402
-    extract_fingerprint, extract_fingerprint_batch, rows_impl)
+    extract_fingerprint, extract_fingerprint_batch, extraction_route)
 from lbaudiodetective_torch.ops.match import match_fingerprints  # noqa: E402
 from tests._torch_common import bit_agreement, jax_clip, jax_config, synth_clip  # noqa: E402
 
@@ -71,13 +71,14 @@ def many_clips():
 
 def _chunks_of(monkeypatch, step: int) -> None:
     """Chunks of ``step`` clips on every device (0: one chunk)."""
-    monkeypatch.setattr(extract, "_wave_clips", lambda n_tiles, device: step)
+    monkeypatch.setattr(extract, "_wave_clips", lambda route, n_tiles, device: step)
 
 
 @pytest.mark.parametrize("batch", [1, 2, 3, 34, 67, 256])
 def test_chunked_batch_equals_single_dispatch(batch, many_clips, monkeypatch):
-    """A batch launched in chunks of 3 clips (the last taking the rest)
-    gives the bits of the batch in one chunk."""
+    """A batch launched in chunks of 3 clips and the rest (one chunk where
+    the batch holds fewer than two) gives the bits of the batch in one
+    chunk."""
     from lbaudiodetective_torch.utils import profiling
 
     cfg, clips = CONFIGS["parity"], many_clips[:batch]
@@ -87,7 +88,8 @@ def test_chunked_batch_equals_single_dispatch(batch, many_clips, monkeypatch):
     with profiling.recording() as rec:
         chunked = extract_fingerprint_batch(clips, cfg, device="cpu")
     launches = [s.attrs for s in rec.spans if s.name == "extract.launch"]
-    assert len(launches) == len(extract.chunk_bounds(batch, 3)) == max(1, batch // 3)
+    assert len(launches) == len(extract.chunk_bounds(batch, 3)) == (
+        1 if batch < 6 else -(-batch // 3))
     for a, b in zip(single, chunked):
         np.testing.assert_array_equal(a, b)
 
@@ -198,28 +200,27 @@ def test_short_clip_has_no_subfingerprints():
 
 
 def test_rows_implementation_per_device():
-    """Each device takes the reference's rows path under the reference's
-    name: CUDA the kernels wherever the reference takes its Pallas kernels,
-    the CPU the conv and gather paths (and the fused kernel's plain version
-    at 128 x 32)."""
+    """Each device takes the route named for what runs there: CUDA the
+    kernels wherever the reference takes its Pallas kernels, the CPU the
+    conv and gather paths."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    assert rows_impl(CONFIGS["parity"], cuda) == "fused_v3"
-    assert rows_impl(CONFIGS["proc"], cuda) == "fused_v3"
-    assert rows_impl(CONFIGS["parity"], cpu) == "fused_v3"
-    assert rows_impl(CONFIGS["fractional_hop"], cpu) == "xla"
-    assert rows_impl(CONFIGS["fractional_hop"], cuda) == "fused"
+    assert extraction_route(CONFIGS["parity"], cuda) == "fused_rows"
+    assert extraction_route(CONFIGS["proc"], cuda) == "fused_rows"
+    assert extraction_route(CONFIGS["parity"], cpu) == "conv"
+    assert extraction_route(CONFIGS["fractional_hop"], cpu) == "gather"
+    assert extraction_route(CONFIGS["fractional_hop"], cuda) == "band_rows"
     big_frames = FingerprintConfig(rows_per_frame=256)
-    assert rows_impl(big_frames, cpu) == "conv"
-    assert rows_impl(big_frames, cuda) == "fused_v3"
-    assert rows_impl(FingerprintConfig(window_size=1024), cuda) == "conv"
+    assert extraction_route(big_frames, cpu) == "conv"
+    assert extraction_route(big_frames, cuda) == "band_rows_coeffs"
+    assert extraction_route(FingerprintConfig(window_size=1024), cuda) == "conv"
     low_band = FingerprintConfig(min_frequency=1.0)
-    assert rows_impl(low_band, cuda) == "xla"
+    assert extraction_route(low_band, cuda) == "gather"
     for cfg in TABLE.values():
-        assert rows_impl(cfg, cpu) in ("conv", "xla")
+        assert extraction_route(cfg, cpu) in ("conv", "gather")
 
 
-#: The configs that reach the band-rows kernel on CUDA, with the rows path
-#: each takes on CUDA and on the CPU.
+#: The configs that reach the band-rows kernel on CUDA, with the route each
+#: takes on CUDA and on the CPU.
 TABLE = {
     "oracle_mode": FingerprintConfig(integer_hop=False),
     "rate_8000": FingerprintConfig(processing_sample_rate=8000.0, integer_hop=False),
@@ -228,26 +229,27 @@ TABLE = {
     "rows_256": FingerprintConfig(rows_per_frame=256),
     "window_1024": FingerprintConfig(window_size=1024, integer_hop=False),
 }
-ROUTES = {"oracle_mode": ("fused", "xla"), "rate_8000": ("fused", "xla"),
-          "pitch_16": ("fused_v3", "conv"), "length_300": ("fused_v3", "conv"),
-          "rows_256": ("fused_v3", "conv"), "window_1024": ("fused", "xla")}
+ROUTES = {"oracle_mode": ("band_rows", "gather"), "rate_8000": ("band_rows", "gather"),
+          "pitch_16": ("band_rows_coeffs", "conv"), "length_300": ("band_rows_coeffs", "conv"),
+          "rows_256": ("band_rows_coeffs", "conv"), "window_1024": ("band_rows", "gather")}
 
 
-def _extract_with(clip, cfg, impl):
-    """Single-clip extraction through ``rows_impl=impl`` (the CPU runs each
+def _extract_with(clip, cfg, route):
+    """Single-clip extraction through ``route`` on CPU tensors (each
     kernel's plain version)."""
+    from lbaudiodetective_torch.ops.constants import constants_to_tensors
     from lbaudiodetective_torch.ops.extract import (
-        bucket_subfingerprints, extract_fingerprint_padded, required_padded_length,
+        bucket_subfingerprints, required_padded_length, route_arrays, route_planes,
         rows_for_subfingerprints)
 
     n = cfg.num_subfingerprints(clip.file_frames, clip.proc_frames)
     n_rows = rows_for_subfingerprints(cfg, bucket_subfingerprints(n))
-    x = np.zeros(required_padded_length(cfg, n_rows), np.float32)
-    t = min(len(clip.samples), len(x))
-    x[:t] = clip.samples[:t]
-    pos, neg = extract_fingerprint_padded(torch.from_numpy(x), torch.tensor(n), cfg,
-                                          n_rows, rows_impl=impl)
-    return pos.numpy()[:n], neg.numpy()[:n]
+    x = np.zeros((1, required_padded_length(cfg, n_rows)), np.float32)
+    t = min(len(clip.samples), x.shape[1])
+    x[0, :t] = clip.samples[:t]
+    consts = constants_to_tensors(route_arrays(cfg, route), "cpu")
+    pos, neg = route_planes(route, torch.from_numpy(x), cfg, n_rows, consts)
+    return pos.numpy()[0, :n], neg.numpy()[0, :n]
 
 
 @pytest.mark.parametrize("name", sorted(TABLE))
@@ -262,8 +264,8 @@ def test_every_config_extracts_against_jax_and_oracle(name):
 
     cfg = TABLE[name]
     cuda_route, cpu_route = ROUTES[name]
-    assert rows_impl(cfg, torch.device("cuda")) == cuda_route
-    assert rows_impl(cfg, torch.device("cpu")) == cpu_route
+    assert extraction_route(cfg, torch.device("cuda")) == cuda_route
+    assert extraction_route(cfg, torch.device("cpu")) == cpu_route
     clip = synth_clip(27, 4.0, cfg)
     pos, neg, n = extract_fingerprint(clip, cfg, device="cpu")
     assert n > 0 and pos.shape == (n, cfg.num_wavelet_pairs)
@@ -307,14 +309,30 @@ def test_length_300_cpu_path_agrees_with_oracle_as_jax_does(route):
     assert agree >= jax_agree >= 0.998, (agree, jax_agree)
 
 
-def test_fused_v2_route_matches_default():
-    """``rows_impl="fused_v2"`` (the reference's other integer-hop kernel)
-    gives the default path's bits at the parity config."""
-    cfg = CONFIGS["parity"]
-    clip = synth_clip(26, 3.0, cfg)
-    pos, neg, n = extract_fingerprint(clip, cfg, device="cpu")
-    vpos, vneg = _extract_with(clip, cfg, "fused_v2")
-    assert bit_agreement(vpos, vneg, pos, neg) >= 0.999
+def test_conv_route_equals_the_fused_rows_plain_version():
+    """At the parity config the CPU's conv route gives, element for element,
+    the classes of the fused rows kernel's plain version: the route the CPU
+    takes there is that plain version op for op."""
+    from lbaudiodetective_torch.ops.constants import constants_to_tensors
+    from lbaudiodetective_torch.ops.extract import (
+        FingerprintExtractor, required_padded_length, rows_for_subfingerprints)
+    from lbaudiodetective_torch.ops.kernels.fused_rows import (
+        fused_band_rows_plain, rows_arrays)
+
+    cfg, n_sub = CONFIGS["parity"], 8
+    n_rows = rows_for_subfingerprints(cfg, n_sub)
+    x = np.zeros((3, required_padded_length(cfg, n_rows)), np.float32)
+    for row, seed in zip(x, (26, 27, 28)):
+        clip = synth_clip(seed, 3.0, cfg).samples[:x.shape[1]]
+        row[:len(clip)] = clip
+    audio = torch.from_numpy(x)
+    extractor = FingerprintExtractor(cfg, "cpu")
+    assert extractor.route == "conv"
+    pos, neg = extractor(audio, torch.full((3,), n_sub), n_rows)
+    cls = fused_band_rows_plain(audio, cfg, n_rows, constants_to_tensors(rows_arrays(cfg), "cpu"),
+                                emit="classes")[..., :cfg.num_wavelet_pairs]
+    assert pos.any() and neg.any()
+    assert torch.equal(pos.to(torch.int32) + 2 * neg.to(torch.int32), cls)
 
 
 @pytest.mark.parametrize("cfg_kwargs", [dict(rows_per_frame=256),
