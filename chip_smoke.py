@@ -101,8 +101,14 @@ Phases (each failed check raises, and the script exits non-zero):
    launch a tick) and ``"incremental"`` (groups of 32): equal winners and
    bit-equal scores after every chunk, every stream naming its planted
    track; stream-seconds per second of each and its peak device memory.
-   The rows and match kernels' launch counts over phases 9-10 (requests
-   and feeds, not the offline references) are > 0.
+   The rows, match and pooled fold kernels' launch counts over phases
+   9-10 (requests and feeds, not the offline references) are > 0.
+10b. The pooled fold kernel (``csrc/slot_fold.cu``) at the live cell's
+   geometry (65,536 tracks of 31-80 rows, 64 slots): the whole state
+   bit-equal to its plain version after a flush of 1, 8 and 64 posting
+   slots of 8 rows, and each flush's time beside its bytes bound, the
+   plain version's and the all-slot GEMM and per-arrival fold it replaced
+   (``parent_fold``), which the kernel must not be slower than at 64.
 11. ``maa_compare_audio_files`` on two written 44.1 kHz WAVs (a
    window-aligned crop: >= 90 % of windows match, equal to the CPU port),
    and ``match_long_padded`` over a one-hour fp1 (19,398 subfingerprints,
@@ -791,6 +797,120 @@ def phase_match_kernel(dev, lib, queries, smi: str, sm_mhz: float) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
             "ms_1m": big_ms, "bound_ms_1m": b_1m["bound_ms"], "coarse_ms_1m": coarse_ms,
             "coarse_bound_ms_1m": b_coarse["bound_ms"]}
+
+
+FOLD_SLOTS = (1, 8, 64)           # posting slots of a timed pooled flush
+FOLD_ROWS = 8                     # rows each posts (the live cell's post)
+
+
+def parent_fold(m, qp, qn, k_valid, base) -> None:
+    """The pooled fold before ``csrc/slot_fold.cu`` (the yardstick it
+    replaced): query planes of every slot to the card, one GEMM of their
+    hits against the unpacked bf16 planes, then one in-place update of each
+    arrival index and age, its slots' index copied to the card."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_torch.ops.kernels.slot_fold import fold_arrival, inv_possible
+
+    sh, (d_a, d_b) = m._shards[0], m._state[0][0]
+    g, k, pairs = qp.shape
+    qp_d = torch.as_tensor(qp, device=sh.device)
+    qn_d = torch.as_tensor(qn, device=sh.device)
+    planes = sh.planes(m._dtype)
+    q = torch.cat([qp_d, qn_d], dim=-1).reshape(g * k, 2 * pairs).to(planes.dtype)
+    hits = torch.matmul(q, planes.T).reshape(g, k, sh.l, -1)
+    inv_q = inv_possible(((qp_d + qn_d) * sh.mask).sum(-1, dtype=torch.int32).to(torch.float32))
+    for t in range(k):
+        live = np.flatnonzero(k_valid > t)
+        for i in np.unique(base[live] + t):
+            sel = live[base[live] + t == i]
+            slots = slice(None) if sel.size == g else torch.from_numpy(sel).to(sh.device)
+            fold_arrival(d_a, d_b, hits[slots, t], sh.inv_lib, sh.row_valid, inv_q[slots, t],
+                         slots, int(i))
+
+
+def fold_work(counts, base, k_valid, w: int) -> tuple[int, int]:
+    """What a pooled fold needs: the bytes (each entry's valid rows of both
+    planes and its inv_lib read once, and each posting slot's touched state
+    read and written once: d_a's diagonals below n - b, d_b's from
+    max(0, b - n + 1) to b + k - 1) and the __popc (one a word of each
+    valid row for each new row)."""
+    import numpy as np
+
+    n = counts.to("cpu").numpy().astype(np.int64)
+    n_bytes = int(n.sum()) * (w * 8 + 4) + n.size * 4
+    for b, k in zip(base, k_valid):
+        touched = np.maximum(n - b, 0) + np.where(n > 0, b + k - np.maximum(b - n + 1, 0), 0)
+        n_bytes += int(touched.sum()) * 8
+    return n_bytes, int(n.sum()) * w * int(np.sum(k_valid))
+
+
+def phase_slot_fold(dev, smi: str, sm_mhz: float, n_entries: int = 65536) -> dict:
+    """The pooled fold kernel against its plain version (bit-equal, the
+    whole state) at 1, 8 and 64 posting slots of ``FOLD_ROWS`` rows at the
+    live cell's geometry (``n_entries`` tracks of 31-80 rows, 64 slots at
+    ages 0-48), and its time beside its bound, the plain version's and the
+    parent's all-slot GEMM and per-arrival fold at the same flush."""
+    import numpy as np
+    import torch
+
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.ops.kernels.slot_fold import slot_fold, slot_fold_plain
+    from lbaudiodetective_torch.streaming.incremental import IncrementalLibraryMatcher
+    from lbaudiodetective_torch.utils.packing import pack_bits
+
+    print("[10b] pooled fold kernel vs plain and the all-slot fold", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    lp, ln, counts = random_words(gen, dev, n_entries, BIG_S, 100)
+    lib = FingerprintLibrary(lp, ln, counts, 100, FingerprintConfig())
+    m = IncrementalLibraryMatcher(lib, batch=64, n_cap=256, device=dev)
+    sh, (d_a, d_b) = m._shards[0], m._state[0][0]
+    rng = np.random.default_rng(18)
+    out = {}
+    for n_post in FOLD_SLOTS:
+        slots = np.sort(rng.choice(64, n_post, replace=False))
+        base = rng.integers(0, 49, n_post)
+        k = np.full(n_post, FOLD_ROWS)
+        cls = rng.choice(3, size=(n_post, FOLD_ROWS, 100))
+        qp, qn = (cls == 1).astype(np.uint8), (cls == 2).astype(np.uint8)
+        words = [torch.from_numpy(pack_bits(x).view(np.int32)).to(dev) for x in (qp, qn)]
+        table = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (slots, base, k)]
+        args = (sh.pos_words, sh.neg_words, sh.n_lib, sh.inv_lib, sh.mask_pairs, *words,
+                *table)
+        ref_a, ref_b = d_a.clone(), d_b.clone()
+        slot_fold(d_a, d_b, *args)
+        slot_fold_plain(ref_a, ref_b, *args)
+        check(torch.equal(d_a, ref_a) and torch.equal(d_b, ref_b),
+              f"{n_post} posting slot(s) x {FOLD_ROWS} rows: kernel state bit-equal to plain")
+        del ref_a, ref_b
+        ms = cuda_ms(lambda: slot_fold(d_a, d_b, *args), iters=20)
+        plain_ms = cuda_ms(lambda: slot_fold_plain(d_a, d_b, *args), iters=2, warmup=1)
+        all_p, all_n = (np.zeros((64, FOLD_ROWS, 100), np.uint8) for _ in range(2))
+        all_p[slots], all_n[slots] = qp, qn
+        all_k, all_b = np.zeros(64, np.int64), np.zeros(64, np.int64)
+        all_k[slots], all_b[slots] = k, base
+        parent_ms = cuda_ms(lambda: parent_fold(m, all_p, all_n, all_k, all_b), iters=5)
+        n_bytes, popc = fold_work(counts, base, k, lp.shape[2])
+        b = bound(n_bytes)
+        out[n_post] = {"ms": ms, "plain_ms": plain_ms, "parent_ms": parent_ms,
+                       "bound_ms": b["bound_ms"], "gb": n_bytes / 1e9,
+                       "popc_ms": popc_ms(popc, sm_mhz)}
+        print(f"  {n_post} slot(s) x {FOLD_ROWS} rows vs {n_entries:,} x {BIG_S}: kernel "
+              f"{ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({n_bytes / 1e9:.4f} GB; "
+              f"{popc / 1e9:.4f} G __popc, {out[n_post]['popc_ms']:.4f} ms), plain "
+              f"{plain_ms:.3f} ms, all-slot GEMM + per-arrival fold {parent_ms:.3f} ms ({smi})",
+              flush=True)
+    check(out[64]["ms"] <= out[64]["parent_ms"],
+          "64 posting slots: the kernel no slower than the all-slot fold")
+    del m, lib
+    torch.cuda.empty_cache()
+    return {"name": "slot_fold", "route": "cuda",
+            "source": "lbaudiodetective_torch/csrc/slot_fold.cu", "replaces": None,
+            "ms": out[1]["ms"], "plain_ms": out[1]["plain_ms"], "bound_ms": out[1]["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "by_slots": out}
 
 
 def phase_library(dev, lib, queries, originals, clip_of, smi: str) -> dict:
@@ -2044,11 +2164,13 @@ def main() -> int:
                                                 smi)
     main_out["stream_identify"], more, runs = phase_stream_identify(dev, svc_lib, clips, smi)
     counts.update(more)
-    for name in ("fused_band_rows", "match_one_vs_many_fused"):
+    for name in ("fused_band_rows", "match_one_vs_many_fused", "slot_fold"):
         check(counts[name] > 0, f"service + streaming identifier launched {name} "
                                 f"{counts[name]} times")
     for r in records:
         r["launches"] += counts[r["name"]]
+    records.append(phase_slot_fold(dev, smi, sm_clock_mhz()))
+    records[-1]["launches"] = counts["slot_fold"]
     main_out["maa_long"], long_args = phase_maa_long(dev, rng, fps, smi)
 
     before = {**main_out["streaming"], "long_padded": main_out["maa_long"]["long_padded"],

@@ -1,11 +1,13 @@
-"""Hand-written Hopper kernels of the extraction and library paths, each
-beside its plain PyTorch version.  Nothing is compiled at import: the CUDA
-library is built by ``_build.load_library`` on the first launch."""
+"""Hand-written Hopper kernels of the extraction, library and live-session
+paths, each beside its plain PyTorch version.  Nothing is compiled at
+import: the CUDA library is built by ``_build.load_library`` on the first
+launch."""
 
 from lbaudiodetective_torch.ops.kernels import band_rows
 from lbaudiodetective_torch.ops.kernels.fused_rows import fused_band_rows
 from lbaudiodetective_torch.ops.kernels.match_packed import match_one_vs_many_fused
 from lbaudiodetective_torch.ops.kernels.select_signs import select_sign_classes
+from lbaudiodetective_torch.ops.kernels.slot_fold import slot_fold
 
 #: Every kernel wrapper by the name its launch count goes under; each
 #: carries a ``launches`` count.
@@ -14,6 +16,7 @@ WRAPPERS = {
     "fused_band_rows": fused_band_rows,
     "match_one_vs_many_fused": match_one_vs_many_fused,
     "band_rows": band_rows.band_rows,
+    "slot_fold": slot_fold,
 }
 
 

@@ -126,6 +126,9 @@ def load_library(flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
             lib.lbad_match_packed.restype = i
             lib.lbad_match_packed_smem_bytes.argtypes = [i, i, i, i, i]
             lib.lbad_match_packed_smem_bytes.restype = ll
+            lib.lbad_slot_fold.argtypes = [p, p, i, ll, i, i, p, p, p, p, i, i, i, p, p, p, p,
+                                           p, i, p]
+            lib.lbad_slot_fold.restype = i
             _lib = lib
         return _lib
 

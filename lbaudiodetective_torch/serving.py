@@ -43,12 +43,14 @@ and ``serve.respond``.  A pooled post: ``pool.enqueue`` (``waited_ns`` to
 take ``_pcond``); the leader's ``pool.window`` (``waited_ns`` to take
 ``_pcond``, ``timeout_ns`` the window; past it, the wait to take ``_pcond``
 back) or a follower's ``pool.wait``; ``pool.dispatch_wait`` (taking
-``_lock``); ``pool.flush`` (``cause``, ``sessions``, ``k_max``, ``rows``; a
-post-caused one lists the ``requests`` it answered, and each of their
-``serve.request`` spans names it in ``flush``); ``pool.top_k`` (``cause``,
-``slots_scored``, ``slots_used``), which scores only the slots it answers:
-those of a flush's posting sessions still open, the one slot of a peek or a
-close.  ``pool.close`` and ``pool.open`` carry ``waited_ns`` for the locks.
+``_lock``); ``pool.flush`` (``cause``, ``sessions``, ``k_max``, ``rows``,
+``slots_folded``: the slots whose hits the fold counted, the posting
+sessions'; a post-caused one lists the ``requests`` it answered, and each
+of their ``serve.request`` spans names it in ``flush``); ``pool.top_k``
+(``cause``, ``slots_scored``, ``slots_used``), which scores only the slots
+it answers: those of a flush's posting sessions still open, the one slot
+of a peek or a close.  ``pool.close`` and ``pool.open`` carry
+``waited_ns`` for the locks.
 """
 
 from __future__ import annotations

@@ -19,15 +19,20 @@ product and once as a sum, in that order (separate torch ops, never a fused
 multiply-add), and terms arrive in ascending arrival order, the order of
 ``_both_orientation_scores``.
 
-The library planes are unpacked once, at construction, into one
-``[L * S, 2 * pairs]`` matrix (pos | neg, masked to the compared pairs)
-that every clone shares.  It is bf16, which holds every integer up to 256
-exactly, at half float32's bytes and on the tensor cores, whenever no hit
-count can pass 256: a count is at most ``pairs`` (150 at
-subfingerprint_length 300) when no entry sets both bits of a pair, as no
-extracted fingerprint does, and at most ``2 * pairs`` when one does
-(``FingerprintLibrary.from_arrays`` and ``load`` accept such planes, and a
-posted query may hold them too).  Otherwise the planes are float32.
+Slot updates (the session pool's) fold the posting slots alone with
+``ops.kernels.slot_fold``, which counts hits from the library's packed
+words: ``csrc/slot_fold.cu`` on CUDA, one launch a shard a flush.  For the
+lockstep update the library planes are unpacked once, on the first
+lockstep update (a pool never holds them), into one ``[L * S, 2 * pairs]``
+matrix (pos | neg, masked to the compared pairs, rows past an entry's
+count empty) that every clone shares.  It is
+bf16, which holds every integer up to 256 exactly, at half float32's bytes
+and on the tensor cores, whenever no hit count can pass 256: a count is at
+most ``pairs`` (150 at subfingerprint_length 300) when no entry sets both
+bits of a pair, as no extracted fingerprint does, and at most ``2 *
+pairs`` when one does (``FingerprintLibrary.from_arrays`` and ``load``
+accept such planes, and a posted query may hold them too).  Otherwise the
+planes are float32.
 The state is ``batch * L * (S + n_cap) * 4`` bytes (256 streams x 16,384
 entries x (56 + 256) diagonals: 5.4 GB).  On a
 ``ShardedFingerprintLibrary`` the planes and the state split over the
@@ -37,6 +42,7 @@ library slots, each slot folding its own entries.
 from __future__ import annotations
 
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -44,8 +50,11 @@ import torch.nn.functional as F
 
 from lbaudiodetective_torch.config import FingerprintConfig
 from lbaudiodetective_torch.device import DEFAULT_DEVICE, library_device
+from lbaudiodetective_torch.ops.kernels.match_packed import popcount32, prefix_mask_words
+from lbaudiodetective_torch.ops.kernels.slot_fold import fold_arrival, inv_possible, slot_fold
 from lbaudiodetective_torch.ops.match import _pair_mask
 from lbaudiodetective_torch.ops.match_packed import _descending
+from lbaudiodetective_torch.utils import packing
 
 #: Largest hit count up to which bf16 holds every integer exactly.
 BF16_EXACT_HITS = 256
@@ -57,29 +66,6 @@ def _unpack_words(words: torch.Tensor, pairs: int) -> torch.Tensor:
     shifts = torch.arange(32, device=words.device, dtype=torch.int32)
     bits = (words[..., None] >> shifts) & 1                  # [..., W, 32]
     return bits.reshape(*words.shape[:-1], -1)[..., :pairs].to(torch.uint8)
-
-
-def _inv_possible(w: torch.Tensor) -> torch.Tensor:
-    return torch.where(w > 0.0, 1.0 / torch.clamp(w, min=1.0), torch.zeros_like(w))
-
-
-def _fold_one(d_a: torch.Tensor, d_b: torch.Tensor, h_t: torch.Tensor,
-              inv_lib: torch.Tensor, lib_row_valid: torch.Tensor,
-              inv_q_t: torch.Tensor, slots, i: int) -> None:
-    """Add arrival ``i``'s terms of the streams ``slots`` (a slice or an
-    index tensor) into their accumulators, in place.  ``h_t`` ``[G', L, S]``
-    holds their hit counts, ``inv_q_t`` ``[G']`` their query reciprocal."""
-    s = d_a.shape[-1]
-    if i < s:
-        # Orientation A: column i adds sim_a[e, d + i] to diagonal d.
-        col = h_t[..., i:] * inv_lib[:, i:]
-        d_a[slots, :, :s - i] += col
-    # Orientation B: library row j adds to diagonal d = i - j (j <= i,
-    # d < n_cap: the caller has grown the state to hold age i + 1).
-    lo = max(0, i - s + 1)
-    row = h_t[..., :i - lo + 1] * inv_q_t[:, None, None]
-    row = row * lib_row_valid[:, :i - lo + 1]
-    d_b[slots, :, lo:i + 1] += row.flip(-1)
 
 
 def _scores_group(d_a: torch.Tensor, d_b: torch.Tensor, n_lib: torch.Tensor,
@@ -127,28 +113,44 @@ def _planes(x, device: torch.device) -> torch.Tensor:
 
 
 class _Shard:
-    """The library part one slot matches: unpacked planes ``[l * S, 2 *
-    pairs]`` (hits = planes @ [qp | qn].T, exact), reciprocal possible
-    hits ``[l, S]``, counts ``[l]`` and valid rows ``[l, S]``, on its
-    device."""
+    """The library part one slot matches, on its device: its packed words
+    ``[l, S, W]`` and counts ``[l]`` (the slot fold's), reciprocal possible
+    hits ``[l, S]``, valid rows ``[l, S]``, whether a compared pair is set
+    in both planes of a valid row (``overlap``), and the lockstep update's
+    unpacked planes (:meth:`planes`).  Rows past an entry's count count as
+    empty: no score reads a term of theirs."""
 
     def __init__(self, pos_words, neg_words, counts, pairs: int, mask: torch.Tensor):
         self.device = pos_words.device
-        self.l, s, _ = pos_words.shape
-        m = mask.to(self.device, torch.uint8)
-        self.lp = _unpack_words(pos_words, pairs) * m
-        self.ln = _unpack_words(neg_words, pairs) * m
-        self.mask = m
+        self.l, s, w = pos_words.shape
+        self.pos_words, self.neg_words = pos_words, neg_words
+        self.pairs = pairs
+        valid = torch.arange(s, device=self.device)[None, :] < counts[:, None]
+        self.mask = mask.to(self.device, torch.uint8)
+        self.mask_pairs = int(mask.sum())               # a prefix of the pairs
+        m = torch.from_numpy(prefix_mask_words(self.mask_pairs, w).view(np.int32))
+        pw, nw = (torch.where(valid[..., None], x & m.to(self.device), 0)
+                  for x in (pos_words, neg_words))
         self.n_lib = counts
-        self.inv_lib = _inv_possible((self.lp + self.ln).sum(-1, dtype=torch.int32)
-                                     .to(torch.float32))
-        self.row_valid = (torch.arange(s, device=self.device)[None, :]
-                          < counts[:, None]).to(torch.float32)
+        self.inv_lib = inv_possible((popcount32(pw) + popcount32(nw)).sum(-1)
+                                    .to(torch.float32))
+        self.overlap = bool((pw & nw).any())
+        self.row_valid = valid.to(torch.float32)
+        self._unpacked = None
+        self._planes_lock = threading.Lock()
 
-    def set_dtype(self, dtype: torch.dtype) -> None:
-        l, s, pairs = self.lp.shape
-        self.planes = torch.cat([self.lp, self.ln], dim=-1).reshape(l * s, 2 * pairs).to(dtype)
-        del self.lp, self.ln
+    def planes(self, dtype: torch.dtype) -> torch.Tensor:
+        """The lockstep update's ``[l * S, 2 * pairs]`` planes (hits =
+        planes @ [qp | qn].T, exact) in ``dtype``, unpacked on the first
+        call and kept for every clone."""
+        with self._planes_lock:
+            if self._unpacked is None:
+                valid = self.row_valid.to(torch.uint8)[..., None]
+                lp, ln = (_unpack_words(x, self.pairs) * self.mask * valid
+                          for x in (self.pos_words, self.neg_words))
+                self._unpacked = torch.cat([lp, ln], dim=-1).reshape(
+                    -1, 2 * self.pairs).to(dtype)
+            return self._unpacked
 
 
 class IncrementalLibraryMatcher:
@@ -199,11 +201,9 @@ class IncrementalLibraryMatcher:
         self._true_l = len(library)
         # A hit count is lp . qp + ln . qn over the pairs: at most ``pairs``
         # while no entry sets both bits of a pair, whatever the query holds.
-        overlap = any(bool((sh.lp & sh.ln).any()) for sh in self._shards)
+        overlap = any(sh.overlap for sh in self._shards)
         self._dtype = (torch.bfloat16 if (2 * pairs if overlap else pairs) <= BF16_EXACT_HITS
                        else torch.float32)
-        for sh in self._shards:
-            sh.set_dtype(self._dtype)
         s = int(library.pos_words.shape[1])
         self._geom = (g, sum(sh.l for sh in self._shards), s)
         self._state = [self._zero_state() for _ in range(batch // g)]
@@ -249,9 +249,9 @@ class IncrementalLibraryMatcher:
         g, k, pairs = qp.shape
         qp, qn = qp.to(sh.device), qn.to(sh.device)
         q = torch.cat([qp, qn], dim=-1).reshape(g * k, 2 * pairs).to(self._dtype)
-        hits = torch.matmul(q, sh.planes.T).reshape(g, k, sh.l, -1)
+        hits = torch.matmul(q, sh.planes(self._dtype).T).reshape(g, k, sh.l, -1)
         w_q = ((qp + qn) * sh.mask).sum(-1, dtype=torch.int32)
-        return hits, _inv_possible(w_q.to(torch.float32))
+        return hits, inv_possible(w_q.to(torch.float32))
 
     def update(self, new_pos, new_neg, k_valid: int | None = None) -> None:
         """new_pos/new_neg: ``[batch, k, pairs]`` uint8 (zero-padded beyond
@@ -269,8 +269,8 @@ class IncrementalLibraryMatcher:
                     hits, inv_q = self._hits(sh, qp_all[gi * g:(gi + 1) * g],
                                              qn_all[gi * g:(gi + 1) * g])
                     for t in range(k_valid):
-                        _fold_one(d_a, d_b, hits[:, t], sh.inv_lib, sh.row_valid,
-                                  inv_q[:, t], slice(None), self.n + t)
+                        fold_arrival(d_a, d_b, hits[:, t], sh.inv_lib, sh.row_valid,
+                                     inv_q[:, t], slice(None), self.n + t)
         self.n += k_valid
 
     def update_bucketed(self, new_pos, new_neg) -> None:
@@ -292,35 +292,40 @@ class IncrementalLibraryMatcher:
     # batched call: the device-side primitive of pooled live sessions.  The
     # ages are the caller's: ``self.n`` is not used.
 
-    def update_slots(self, new_pos, new_neg, k_valid, base) -> None:
-        """Fold ``k_valid[g]`` new subfingerprints of slot ``g`` (arriving at
-        ages ``base[g] .. base[g] + k_valid[g] - 1``) for every slot at
-        once; idle slots pass ``k_valid[g] = 0``.  Needs single-group state
-        (``stream_group`` unset).  Slots folding the same arrival index
-        share one set of ops."""
+    def update_slots(self, new_pos, new_neg, k_valid, base, slots) -> int:
+        """Fold ``k_valid[j]`` new subfingerprints (row ``j`` of the
+        ``[G, k, pairs]`` uint8 arrays ``new_pos``/``new_neg``) of slot
+        ``slots[j]`` (distinct), arriving at ages ``base[j]`` on.  Needs
+        single-group state (``stream_group`` unset).  Only the rows with
+        ``k_valid[j] > 0`` are folded: one ``ops.kernels.slot_fold`` call a
+        shard (a kernel launch on CUDA), their words and slot table copied
+        to each device in one page.  Returns the number of slots folded."""
         if len(self._state) != 1:
             raise ValueError("slot updates need single-group state "
                              "(stream_group=0)")
         k_valid = np.asarray(k_valid, np.int64)
         base = np.asarray(base, np.int64)
+        slots = np.asarray(slots, np.int64)
         self._grow(int((base + k_valid).max()) if k_valid.size else 0, "slot age")
-        k_max = int(k_valid.max()) if k_valid.size else 0
-        if k_max == 0:
-            return
-        qp = _planes(new_pos, self.device)[:, :k_max]
-        qn = _planes(new_neg, self.device)[:, :k_max]
+        live = np.flatnonzero(k_valid > 0)
+        if not live.size:
+            return 0
+        k_max = int(k_valid[live].max())
+        words = [packing.pack_bits(np.asarray(x, np.uint8)[live, :k_max]).view(np.int32)
+                 for x in (new_pos, new_neg)]                     # [G', k_max, W]
+        g, _, w = words[0].shape
+        page = torch.from_numpy(np.concatenate(
+            [np.stack([slots[live], base[live], k_valid[live]]).astype(np.int32).ravel(),
+             words[0].ravel(), words[1].ravel()]))
+        on: dict = {}
         for sh, (d_a, d_b) in zip(self._shards, self._state[0]):
-            hits, inv_q = self._hits(sh, qp, qn)
-            for t in range(k_max):
-                live = np.flatnonzero(k_valid > t)
-                for i in np.unique(base[live] + t):
-                    sel = live[base[live] + t == i]
-                    if sel.size == self.batch:
-                        slots = slice(None)
-                    else:
-                        slots = torch.from_numpy(sel).to(sh.device)
-                    _fold_one(d_a, d_b, hits[slots, t], sh.inv_lib, sh.row_valid,
-                              inv_q[slots, t], slots, int(i))
+            if sh.device not in on:
+                on[sh.device] = (page if sh.device.type == "cpu" else
+                                 page.pin_memory().to(sh.device, non_blocking=True))
+            table, q = on[sh.device][:3 * g].view(3, g), on[sh.device][3 * g:].view(2, g, k_max, w)
+            slot_fold(d_a, d_b, sh.pos_words, sh.neg_words, sh.n_lib, sh.inv_lib,
+                      sh.mask_pairs, q[0], q[1], table[0], table[1], table[2])
+        return int(g)
 
     def _slot_scores(self, ages, slots) -> torch.Tensor:
         """``[len(slots), L]`` scores of ``slots`` (every slot when None),
@@ -440,9 +445,11 @@ class StreamSessionPool:
     matcher.
 
     Posts are queued and all of them fold in one ``update_slots`` call per
-    :meth:`flush`; one ``top_k_slots`` then scores the slots of the
-    sessions whose results are read (:meth:`top_k` with ``sids``), so its
-    work follows the sessions answered, not the pool's size.  Each slot's
+    :meth:`flush`, over the slots of the posting sessions alone (one launch
+    of ``csrc/slot_fold.cu`` a shard on CUDA); one ``top_k_slots`` then
+    scores the slots of the sessions whose results are read (:meth:`top_k`
+    with ``sids``), so the work of both follows the sessions that post and
+    are answered, not the pool's size.  Each slot's
     scores are bitwise equal to a dedicated per-session matcher (its terms
     accumulate in its own ascending arrival order), whichever slots are
     scored with it.
@@ -465,8 +472,9 @@ class StreamSessionPool:
         self._age = np.zeros(slots, np.int64)
         self._pending: dict[str, list[tuple[np.ndarray, np.ndarray]]] = {}
         #: The work of the latest :meth:`flush`: sessions folded, the most
-        #: subfingerprints a session folded, and subfingerprints folded.
-        self.last_flush = {"sessions": 0, "k_max": 0, "rows": 0}
+        #: subfingerprints a session folded, subfingerprints folded, and the
+        #: slots whose hits the fold counted (the posting sessions').
+        self.last_flush = {"sessions": 0, "k_max": 0, "rows": 0, "slots_folded": 0}
 
     def __len__(self) -> int:
         return len(self._slot)
@@ -501,27 +509,27 @@ class StreamSessionPool:
                 (np.asarray(pos, np.uint8), np.asarray(neg, np.uint8)))
 
     def flush(self) -> int:
-        """Fold every queued post in one batched call; returns the number
-        of sessions that advanced."""
+        """Fold every queued post in one batched call over the posting
+        sessions' slots; returns the number of sessions that advanced."""
         if not self._pending:
-            self.last_flush = {"sessions": 0, "k_max": 0, "rows": 0}
+            self.last_flush = {"sessions": 0, "k_max": 0, "rows": 0, "slots_folded": 0}
             return 0
-        merged = {sid: (np.concatenate([p for p, _ in parts]),
-                        np.concatenate([q for _, q in parts]))
-                  for sid, parts in self._pending.items()}
-        k_max = max(p.shape[0] for p, _ in merged.values())
-        qp = np.zeros((self.slots, k_max, self._m.pairs), np.uint8)
+        merged = [(self._slot[sid], np.concatenate([p for p, _ in parts]),
+                   np.concatenate([q for _, q in parts]))
+                  for sid, parts in self._pending.items()]
+        k_max = max(p.shape[0] for _, p, _ in merged)
+        qp = np.zeros((len(merged), k_max, self._m.pairs), np.uint8)
         qn = np.zeros_like(qp)
-        k_valid = np.zeros(self.slots, np.int64)
-        for sid, (p, q) in merged.items():
-            g = self._slot[sid]
-            qp[g, :p.shape[0]] = p
-            qn[g, :q.shape[0]] = q
-            k_valid[g] = p.shape[0]
-        self._m.update_slots(qp, qn, k_valid, self._age)
-        self._age = self._age + k_valid
+        slots = np.array([g for g, _, _ in merged], np.int64)
+        k_valid = np.array([p.shape[0] for _, p, _ in merged], np.int64)
+        for j, (_, p, q) in enumerate(merged):
+            qp[j, :p.shape[0]] = p
+            qn[j, :q.shape[0]] = q
+        folded = self._m.update_slots(qp, qn, k_valid, self._age[slots], slots)
+        self._age[slots] += k_valid
         self._pending.clear()
-        self.last_flush = {"sessions": len(merged), "k_max": k_max, "rows": int(k_valid.sum())}
+        self.last_flush = {"sessions": len(merged), "k_max": k_max, "rows": int(k_valid.sum()),
+                           "slots_folded": folded}
         return len(merged)
 
     def top_k(self, k: int, sids=None) -> tuple[np.ndarray, np.ndarray]:

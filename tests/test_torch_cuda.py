@@ -247,7 +247,8 @@ def test_cuda_extraction_runs_kernels_and_equals_cpu(cuda_device):
         kernels.reset_launch_counts()
         fps.append(gpu.process_decoded(clip))
         assert kernels.launch_counts() == {"select_sign_classes": 0, "fused_band_rows": 1,
-                                           "match_one_vs_many_fused": 0, "band_rows": 0}
+                                           "match_one_vs_many_fused": 0, "band_rows": 0,
+                                           "slot_fold": 0}
     refs = [cpu.process_decoded(long_clip), cpu.process_decoded(short_clip)]
     for f, r in zip(fps, refs):
         assert f.num_subfingerprints == r.num_subfingerprints
@@ -603,3 +604,202 @@ def _ring_order_top_k(full: torch.Tensor, n: int, k: int):
         scores.append(torch.gather(block, 1, order))
         idx.append(perm[order])
     return torch.cat(scores), torch.cat(idx)
+
+
+def _card_words(gen, shape, dev, overlap_every: int = 0):
+    """Random int32 (pos, neg) words on the card: disjoint planes, except
+    that every ``overlap_every``-th row along the first axis also sets
+    some pairs in both."""
+    pos = torch.randint(-2**31, 2**31, shape, generator=gen, device=dev, dtype=torch.int64)
+    neg = torch.randint(-2**31, 2**31, shape, generator=gen, device=dev, dtype=torch.int64)
+    pos, neg = pos.to(torch.int32), neg.to(torch.int32)
+    neg = neg & ~pos
+    if overlap_every:
+        extra = torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+        neg[::overlap_every] |= pos[::overlap_every] & extra[::overlap_every]
+    return pos, neg
+
+
+#: name: rows a posting slot folds, one entry a slot (64 slots cycle the list)
+FOLD_CASES = {"1_slot_k1": [1], "1_slot_k8": [8], "2_slots_k3_k8": [3, 8],
+              "2_slots_k13_k5": [13, 5], "64_slots_k1_to_8": list(range(1, 9)),
+              "64_slots_k8": [8]}
+
+
+@pytest.fixture(scope="module")
+def cell_pool_matcher():
+    """A 64-slot matcher on the live cell's geometry: 65,536 entries of
+    31-80 rows, W 4 (100 pairs; words past the pairs and rows past a count
+    hold junk), every seventh entry with pairs set in both planes."""
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.streaming.incremental import IncrementalLibraryMatcher
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    lp, ln = _card_words(gen, (65536, 80, 4), dev, overlap_every=7)
+    counts = torch.randint(31, 81, (65536,), generator=gen, device=dev).to(torch.int32)
+    lib = FingerprintLibrary(lp, ln, counts, 100, FingerprintConfig())
+    return IncrementalLibraryMatcher(lib, batch=64, n_cap=256, device=dev), gen
+
+
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_slot_fold_kernel_bit_equal_at_the_cell_geometry(case, cuda_device, cell_pool_matcher):
+    """The fold kernel equals its plain version bit for bit on the whole
+    state, at 1, 2 and 64 posting slots, 1 to 13 rows a slot (two passes of
+    the hit tile past 8), ages on both sides of the entries' counts,
+    query rows with pairs set in both planes; one launch; the slots that
+    did not post keep their state."""
+    from lbaudiodetective_torch.ops.kernels.slot_fold import slot_fold, slot_fold_plain
+
+    m, gen = cell_pool_matcher
+    sh = m._shards[0]
+    ks = FOLD_CASES[case]
+    n_post = 64 if case.startswith("64") else len(ks)
+    rng = np.random.default_rng(len(case))
+    slots = rng.choice(64, n_post, replace=False)
+    k = np.array([ks[j % len(ks)] for j in range(n_post)])
+    base = rng.integers(0, 256 - k + 1)
+    base[: n_post // 2] = rng.integers(0, 48, n_post // 2)        # orientation A still folds
+    qp, qn = _card_words(gen, (n_post, int(k.max()), 4), cuda_device, overlap_every=3)
+    table = [torch.from_numpy(x.astype(np.int32)).to(cuda_device) for x in (slots, base, k)]
+    d_a = torch.rand((64, 65536, 80), generator=gen, device=cuda_device) * 4
+    d_b = torch.rand((64, 65536, 256), generator=gen, device=cuda_device) * 4
+    ref_a, ref_b = d_a.clone(), d_b.clone()
+    args = (sh.pos_words, sh.neg_words, sh.n_lib, sh.inv_lib, sh.mask_pairs, qp, qn, *table)
+    before = slot_fold.launches
+    slot_fold(d_a, d_b, *args)
+    torch.cuda.synchronize()
+    assert slot_fold.launches == before + 1
+    idle = torch.ones(64, dtype=torch.bool)
+    idle[slots] = False
+    assert torch.equal(d_a[idle], ref_a[idle]) and torch.equal(d_b[idle], ref_b[idle])
+    assert not (torch.equal(d_a[slots], ref_a[slots]) and torch.equal(d_b[slots], ref_b[slots]))
+    slot_fold_plain(ref_a, ref_b, *args)
+    assert torch.equal(d_a, ref_a)
+    assert torch.equal(d_b, ref_b)
+
+
+def test_pool_flush_launches_the_fold_once_a_shard(cuda_device):
+    """A pooled flush on a library of four shards on the card launches the
+    fold kernel once a shard, and leaves every slot that did not post as it
+    was; its state equals a one-shard pool's."""
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.parallel.mesh import make_mesh
+    from lbaudiodetective_torch.parallel.sharded_library import ShardedFingerprintLibrary
+    from lbaudiodetective_torch.streaming.incremental import StreamSessionPool
+
+    lp, ln, nl = _ragged_words(46, 1001, 80, cuda_device, lo=31)
+    lib = FingerprintLibrary(lp, ln, nl, 100, FingerprintConfig())
+    four = ShardedFingerprintLibrary(lib, make_mesh(devices=[cuda_device] * 4,
+                                                    library_parallelism=4))
+    pools = [StreamSessionPool(x, slots=16, n_cap=64, device=cuda_device) for x in (lib, four)]
+    rng = np.random.default_rng(20)
+    streams = [sign_planes(rng, (40, 100)) for _ in range(16)]
+    for pool in pools:
+        for j in range(16):
+            pool.open(str(j))
+            pool.post(str(j), streams[j][0][:5 + j], streams[j][1][:5 + j])
+        pool.flush()
+    for shards, pool in zip((1, 4), pools):
+        before = [pool._m.slot_state(s) for s in range(16)]
+        for j in (3, 11):
+            pool.post(str(j), streams[j][0][20:28], streams[j][1][20:28])
+        kernels.reset_launch_counts()
+        pool.flush()
+        assert kernels.launch_counts()["slot_fold"] == shards
+        assert pool.last_flush["slots_folded"] == 2
+        for s in range(16):
+            same = all(np.array_equal(x, y) for x, y in zip(pool._m.slot_state(s), before[s]))
+            assert same == (s not in (pool._slot["3"], pool._slot["11"])), s
+    for j in range(16):
+        for x, y in zip(*(p._m.slot_state(p._slot[str(j)]) for p in pools)):
+            np.testing.assert_array_equal(x[:, :1001], y[:, :1001])
+
+
+#: name: (words a row, rows an entry's bucket, subfingerprint length)
+LONG_FOLD_CASES = {"w4_s4096": (4, 4096, 200), "w5_s4104": (5, 4104, 300)}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_FOLD_CASES))
+def test_slot_fold_kernel_bit_equal_on_long_entries(case, cuda_device):
+    """Entries of thousands of rows, which the kernel streams through its
+    shared memory in chunks: bit-equal to the plain version on the whole
+    state, with ages at the start, the middle and the end of the longest
+    entry, counts at a chunk's edges, 1 to 13 rows a slot; one launch."""
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.ops.kernels.slot_fold import slot_fold, slot_fold_plain
+    from lbaudiodetective_torch.streaming.incremental import IncrementalLibraryMatcher
+
+    w, s, length = LONG_FOLD_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    lp, ln = _card_words(gen, (48, s, w), cuda_device, overlap_every=5)
+    counts = torch.randint(1, s + 1, (48,), generator=gen, device=cuda_device).to(torch.int32)
+    counts[:5] = torch.tensor([s, s - 1, 128, 129, 135], dtype=torch.int32)
+    lib = FingerprintLibrary(lp, ln, counts, length // 2,
+                             FingerprintConfig(subfingerprint_length=length))
+    sh = IncrementalLibraryMatcher(lib, batch=6, device=cuda_device)._shards[0]
+    slots = np.array([4, 0, 5, 2, 1], np.int32)
+    base = np.array([0, 127, s // 2, s - 5, s + 3], np.int32)
+    k = np.array([13, 8, 9, 8, 1], np.int32)
+    qp, qn = _card_words(gen, (5, 13, w), cuda_device, overlap_every=3)
+    table = [torch.from_numpy(x).to(cuda_device) for x in (slots, base, k)]
+    d_a = torch.rand((6, 48, s), generator=gen, device=cuda_device) * 4
+    d_b = torch.rand((6, 48, 2 * s), generator=gen, device=cuda_device) * 4
+    ref_a, ref_b = d_a.clone(), d_b.clone()
+    args = (sh.pos_words, sh.neg_words, sh.n_lib, sh.inv_lib, sh.mask_pairs, qp, qn, *table)
+    before = slot_fold.launches
+    slot_fold(d_a, d_b, *args)
+    torch.cuda.synchronize()
+    assert slot_fold.launches == before + 1
+    assert torch.equal(d_a[3], ref_a[3]) and torch.equal(d_b[3], ref_b[3])
+    slot_fold_plain(ref_a, ref_b, *args)
+    assert torch.equal(d_a, ref_a)
+    assert torch.equal(d_b, ref_b)
+
+
+def test_pool_with_a_long_entry_equals_per_session_matchers(cuda_device):
+    """A pool on the card whose library holds one entry of 3,000 rows
+    (beside entries of 31-80): every flush launches the fold once, and
+    each session's state and scores equal a per-session matcher's lockstep
+    update of the same rows, bit for bit, through ages past 128 that grow
+    ``n_cap``; the session posting the long entry's rows finds it first."""
+    from lbaudiodetective_torch.models.library import FingerprintLibrary
+    from lbaudiodetective_torch.streaming.incremental import (
+        IncrementalLibraryMatcher, StreamSessionPool)
+
+    rng = np.random.default_rng(3000)
+    cls = rng.integers(0, 3, size=(40, 3000, 100), dtype=np.int8)
+    counts = rng.integers(31, 81, size=40).astype(np.int32)
+    counts[7] = 3000
+    cls[np.arange(3000)[None, :] >= counts[:, None]] = 0
+    lib = FingerprintLibrary(_words(cls == 1, cuda_device), _words(cls == 2, cuda_device),
+                             torch.from_numpy(counts).to(cuda_device), 100, FingerprintConfig())
+    pool = StreamSessionPool(lib, slots=4, n_cap=64, device=cuda_device)
+    streams = {"a": ((cls[7, 900:1200] == 1).astype(np.uint8),
+                     (cls[7, 900:1200] == 2).astype(np.uint8)),
+               "b": sign_planes(rng, (300, 100)), "c": sign_planes(rng, (300, 100))}
+    refs = {sid: IncrementalLibraryMatcher(lib, batch=1, n_cap=64, device=cuda_device)
+            for sid in streams}
+    for sid in streams:
+        pool.open(sid)
+    for flush in ({"a": 50, "b": 8}, {"a": 50, "c": 13}, {"a": 80, "b": 60}, {"a": 8}):
+        for sid, n in flush.items():
+            a0 = pool.age(sid)
+            p, q = (x[a0:a0 + n] for x in streams[sid])
+            pool.post(sid, p, q)
+            refs[sid].update(p[None], q[None])
+        kernels.reset_launch_counts()
+        pool.flush()
+        assert kernels.launch_counts()["slot_fold"] == 1
+        for sid in streams:
+            got, want = pool._m.slot_state(pool._slot[sid]), refs[sid].slot_state(0)
+            np.testing.assert_array_equal(got[0], want[0], err_msg=sid)
+            cap = min(got[1].shape[-1], want[1].shape[-1])
+            np.testing.assert_array_equal(got[1][..., :cap], want[1][..., :cap], err_msg=sid)
+            np.testing.assert_array_equal(pool.scores_for(sid), refs[sid].scores()[0],
+                                          err_msg=sid)
+    assert pool.age("a") == 188 and pool._m.n_cap == 256
+    assert int(np.argmax(pool.scores_for("a"))) == 7

@@ -262,6 +262,106 @@ def test_session_pool_equals_per_session_matchers_and_jax_pool():
         pool.open("e")                          # 3 slots, all taken
 
 
+#: name: (pool capacity n_cap, comparison_range, overlapping planes, sharded)
+FOLD_CASES = {"mixed_ages": (64, 0, False, False), "grows_n_cap": (4, 0, False, False),
+              "comparison_range": (64, 37, False, False),
+              "overlapping_planes": (64, 0, True, False), "sharded_mesh": (4, 0, False, True)}
+
+
+def _fold_libraries(rng, overlap: bool):
+    """Seven entries of 2-11 rows; with ``overlap``, entries and posted
+    rows that set both bits of some pairs (the words may hold them)."""
+    from lbaudiodetective_torch.config import FingerprintConfig
+    from lbaudiodetective_torch.utils import packing
+
+    counts = np.array([6, 11, 2, 9, 4, 11, 7], np.int32)
+    lp, ln = np.zeros((2, counts.size, 11, PAIRS), np.uint8)
+    for e, n in enumerate(counts):
+        lp[e, :n], ln[e, :n] = _planes(rng, n)
+        if overlap:
+            ln[e, :n] |= lp[e, :n] & (rng.random((n, PAIRS)) < 0.3)
+    words = packing.pack_bits(lp).view(np.int32), packing.pack_bits(ln).view(np.int32)
+    return (FingerprintLibrary.from_arrays(*words, counts, PAIRS, FingerprintConfig(),
+                                           device="cpu"),
+            JaxLibrary(*(x.view(np.uint32) for x in words), counts, PAIRS, JaxConfig()))
+
+
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_posting_slot_fold_equals_matchers_and_jax_pool(case):
+    """The pool folds only the slots that posted (the fold kernel's plain
+    version): every slot's state equals, bit for bit, a per-session
+    matcher's lockstep ``update`` of the same rows, and its scores the JAX
+    pool's, through flushes with slots at different ages and counts, slots
+    that post nothing, posts that grow ``n_cap``, a comparison range,
+    overlapping planes, and a library on a 4-way sharded CPU mesh.  A row
+    with ``k_valid`` 0 leaves its slot untouched."""
+    n_cap, comparison_range, overlap, sharded = FOLD_CASES[case]
+    rng = np.random.default_rng(71)
+    lib, jlib = _fold_libraries(rng, overlap)
+    if sharded:
+        from lbaudiodetective_torch.parallel.mesh import make_mesh
+        from lbaudiodetective_torch.parallel.sharded_library import ShardedFingerprintLibrary
+
+        lib = ShardedFingerprintLibrary(lib, make_mesh(8, library_parallelism=4, device="cpu"))
+    pool = StreamSessionPool(lib, slots=5, n_cap=n_cap, comparison_range=comparison_range,
+                             device="cpu")
+    jpool = jax_inc.StreamSessionPool(jlib, slots=5, n_cap=n_cap,
+                                      comparison_range=comparison_range)
+    streams, refs = {}, {}
+    for sid in "abcd":
+        assert pool.open(sid) == jpool.open(sid)
+        p, q = _planes(rng, 24)
+        if overlap:
+            q |= p & (rng.random(p.shape) < 0.2)
+        streams[sid] = p, q
+        refs[sid] = IncrementalLibraryMatcher(lib, batch=1, n_cap=n_cap,
+                                              comparison_range=comparison_range, device="cpu")
+
+    def check(sids):
+        for sid in sids:
+            got, want = pool._m.slot_state(pool._slot[sid]), refs[sid].slot_state(0)
+            np.testing.assert_array_equal(got[0], want[0], err_msg=sid)
+            cap = min(got[1].shape[-1], want[1].shape[-1])
+            np.testing.assert_array_equal(got[1][..., :cap], want[1][..., :cap], err_msg=sid)
+            assert not got[1][..., cap:].any() and not want[1][..., cap:].any()
+            scores = pool.scores_for(sid)
+            np.testing.assert_array_equal(scores, refs[sid].scores()[0], err_msg=sid)
+            np.testing.assert_array_equal(scores, np.asarray(jpool.scores_for(sid)), err_msg=sid)
+
+    # Each flush: {session: rows per post}; sessions left out post nothing.
+    for flush in ({"a": [3], "b": [3], "c": [1]}, {"a": [2], "c": [5], "d": [4]},
+                  {"b": [1, 2], "d": [4]}, {"a": [6], "c": [2], "d": [1]}):
+        for sid, posts in flush.items():
+            for k in posts:
+                a0 = pool.age(sid) + pool.pending(sid)
+                p, q = (x[a0:a0 + k] for x in streams[sid])
+                pool.post(sid, p, q)
+                jpool.post(sid, p, q)
+                refs[sid].update(p[None], q[None])
+        assert pool.flush() == jpool.flush() == len(flush)
+        assert pool.last_flush["slots_folded"] == len(flush)
+        check("abcd")
+    assert [pool.age(sid) for sid in "abcd"] == [11, 6, 8, 9]
+    assert pool._m.n_cap == (16 if n_cap == 4 else n_cap)
+
+    # A row with k_valid 0 folds nothing; the other row folds as a post.
+    slots = [pool._slot["b"], pool._slot["a"]]
+    p, q = (np.stack([x[6:8], y[11:13]]) for x, y in zip(streams["b"], streams["a"]))
+    before = pool._m.slot_state(slots[0])
+    assert pool._m.update_slots(p, q, [0, 2], pool._age[slots], slots) == 1
+    pool._age[slots[1]] += 2
+    refs["a"].update(p[1:], q[1:])
+    jpool.post("a", p[1], q[1])
+    jpool.flush()
+    for x, y in zip(pool._m.slot_state(slots[0]), before):
+        np.testing.assert_array_equal(x, y)
+    check("a")
+
+    with pytest.raises(ValueError, match="single-group"):
+        IncrementalLibraryMatcher(lib, batch=2, stream_group=1, device="cpu").update_slots(
+            p, q, [1, 1], [0, 0], [0, 1])
+
+
 @pytest.mark.parametrize("sharded", [False, True])
 def test_top_k_of_chosen_slots_equals_those_rows_of_the_full_call(sharded):
     """Scoring only the slots asked for changes no bit: ``top_k_slots``,

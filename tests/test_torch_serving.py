@@ -473,6 +473,7 @@ def test_pooled_posts_over_http_record_their_spans(case):
     assert len(by_cause["post"]) + len(by_cause["peek"]) + len(by_cause["close"]) == len(flushes)
     assert sum(f.attrs["sessions"] for f in flushes.values()) == 16
     assert sum(f.attrs["rows"] for f in flushes.values()) == 16 * 3
+    assert all(f.attrs["slots_folded"] == f.attrs["sessions"] for f in flushes.values())
     for p in posts:
         flush = flushes[p.attrs["flush"]]
         assert flush.attrs["cause"] == "post" and p.request in flush.attrs["requests"]
